@@ -5,13 +5,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, holds
-it against its plain PyTorch version, drives the stiff ensemble solver
-through its public entry points at the bench configuration (base
-spherical model, dr=0.2, tf=5 min, Nts=2, rtol 1e-4, atol 1e-7, N=1024,
-f32), and checks the results.  Phases:
+It builds the port's two CUDA kernels from the sources in the checkout,
+holds each against its plain PyTorch version, drives the stiff ensemble
+solver and the explicit path through their public entry points at the
+bench configuration (base spherical model, dr=0.2, tf=5 min, N=1024,
+f32; the stiff solves with Nts=2, rtol 1e-4, atol 1e-7), then the
+ensemble engine and the GSA runner, and checks the results.  Phases:
 
-  0. set-up: card, power limit, versions, kernel build (nvcc, sm_90a);
+  0. set-up: card, power limit, versions, both kernel builds (nvcc,
+     sm_90a, started together);
   1. the fused Rosenbrock23 kernel against ros23_step_plain at B=256 on
      a mid-transient state, for the base, rect and memb_sfk systems;
      CUDA-event times of both;
@@ -22,13 +24,26 @@ f32), and checks the results.  Phases:
   3. the bench headline in eager PyTorch: f32 RODAS4 under the
      lane-refill scheduler, N=1024, 256 lanes; member 0 against a tight
      f64 RODAS4 solve;
-  4. one JSON line describing every ported kernel.
+  4. the fused explicit solve against solve_explicit_plain at B=256,
+     tf=0.25 for base, rect and memb_sfk, and on two finer grids (201
+     and 501 nodes); CUDA-event times of the plain version and of the
+     kernel at that shape;
+  5. the explicit path at full width through the kernel: N=1024, tf=5,
+     about 37,000 steps per member in one launch; the launch count is
+     reset just before and read just after; members 0-3 against tight
+     f64 RODAS4 solves; CUDA-event times at N=1024 and N=4096;
+  6. the engine and the GSA runner: eager run_ensemble(solver="explicit")
+     against the kernel, run_ensemble(solver="stiff") with the 6 GSA
+     outputs and masked_quantiles, and a 325-solve eFAST sweep over the
+     initial concentrations;
+  7. one JSON line describing every ported kernel.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  It needs no network and imports no
 JAX.  With no CUDA device it exits with status 2 and prints no result.
 """
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -42,6 +57,9 @@ CHUNK = 256
 CFG = dict(dr=0.2, tf=5.0, Nts=2, rtol=1e-4, atol=1e-7)
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 on the CUDA cores (dense)
 PEAK_HBM_BPS = 3.35e12   # H100 SXM HBM3
+# fused f32 explicit solve against f64 RODAS4 at rtol 1e-8, as
+# max |dC| / (|C| + 0.2) over members 0-3 (3.8e-4 on an NVIDIA H100; phase 5)
+EXPLICIT_VS_STIFF = 1e-3
 
 
 def log(msg):
@@ -297,6 +315,245 @@ def phase3(g, batch, dev):
     return N / wall
 
 
+def _rel_norm(a, b):
+    """Relative norm error in float64 (memb_sfk holds values ~1e32, whose
+    squares overflow float32)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def phase4(g, batch, dev, erows):
+    """The fused explicit solve against its plain version."""
+    import torch
+    from gab1_shp2_tpu_torch.models.params import stability_dt
+    from gab1_shp2_tpu_torch.ops import explicit_cuda
+
+    Co = g.default_co(dtype=torch.float32, device=dev)
+
+    def members(n):
+        return g.Params.unpack(torch.as_tensor(batch[:n],
+                                               dtype=torch.float32,
+                                               device=dev))
+
+    def compare(label, system, pb, **kw):
+        Ck, mk = explicit_cuda.solve_explicit_fused(system, Co, pb,
+                                                    device=dev, **kw)
+        Cp, mp = explicit_cuda.solve_explicit_plain(system, Co, pb,
+                                                    device=dev, **kw)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(Ck).all() and torch.isfinite(mk).all()):
+            raise RuntimeError(f"{label}: the kernel returned non-finite "
+                               "values")
+        err_C, err_m = _rel_norm(Ck, Cp), _rel_norm(mk, mp)
+        # absolute error where the plain values are of ordinary size: the
+        # pinned aSFK boundary value of memb_sfk (~1e32) is held by the
+        # relative norm only
+        ordinary = Cp.abs() <= 1e6
+        abs_C = float(((Ck - Cp).abs() * ordinary).max())
+        abs_m = float((mk - mp).abs().max())
+        log(f"  {label}: C rel-norm err {err_C:.3e}, m rel-norm err "
+            f"{err_m:.3e}; max abs err C {abs_C:.3e}, m {abs_m:.3e}")
+        if not (err_C <= 1e-4 and err_m <= 1e-4):
+            raise RuntimeError(f"{label}: kernel disagrees with "
+                               "solve_explicit_plain")
+        return max(err_C, err_m), max(abs_C, abs_m)
+
+    kw = dict(dr=CFG["dr"], tf=0.25, maxiters=4)
+    pb = members(CHUNK)
+    results = [compare(f"{name} B={CHUNK} tf=0.25", system, pb, **kw)
+               for name, system in (("base", g.base_system()),
+                                    ("rect", g.rect_system()),
+                                    ("memb_sfk", g.memb_sfk_system()))]
+    # finer grids than the TPU kernel's 128 nodes: 201 nodes (the
+    # 256-thread instantiation) and 501 nodes (the 1024-thread one)
+    results.append(compare("base B=32 dr=0.05 (201 nodes) tf=0.01",
+                           g.base_system(), members(32), dr=0.05, tf=0.01,
+                           maxiters=4))
+    results.append(compare("base B=4 dr=0.02 (501 nodes) tf=0.0005",
+                           g.base_system(), members(4), dr=0.02, tf=0.0005,
+                           maxiters=4))
+    before = explicit_cuda.LAUNCHES
+    plain_ms = cuda_ms(lambda: explicit_cuda.solve_explicit_plain(
+        g.base_system(), Co, pb, device=dev, **kw), reps=3, warmup=0)
+    # the kernel at the same shape, so the two times compare like for like
+    small_ms = cuda_ms(lambda: explicit_cuda.solve_explicit_fused(
+        g.base_system(), Co, pb, device=dev, **kw), reps=5, warmup=1)
+    explicit_cuda.LAUNCHES = before
+    nt = torch.ceil(0.25 / stability_dt(pb, CFG["dr"]))
+    log(f"  base B={CHUNK} tf=0.25 ({int(nt.min())}-{int(nt.max())} steps): "
+        f"plain version {plain_ms:.1f} ms (median of 3), kernel "
+        f"{small_ms:.3f} ms (median of 5)")
+    erows.update(max_err=max(r[0] for r in results),
+                 max_abs_err=max(r[1] for r in results),
+                 plain_ms=plain_ms, ms_at_plain_shape=small_ms,
+                 plain_shape=f"B={CHUNK}, tf=0.25, {int(nt.max())} steps")
+
+
+def phase5(g, batch, dev, erows):
+    """The explicit path at full width through the kernel."""
+    import torch
+    from gab1_shp2_tpu_torch.models.params import stability_dt
+    from gab1_shp2_tpu_torch.ops import explicit_cuda
+
+    system = g.base_system()
+    Co = g.default_co(dtype=torch.float32, device=dev)
+    pb = g.Params.unpack(torch.as_tensor(batch, dtype=torch.float32,
+                                         device=dev))
+    kw = dict(dr=CFG["dr"], tf=CFG["tf"], maxiters=4, device=dev)
+    torch.cuda.synchronize()
+    explicit_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    C, m = explicit_cuda.solve_explicit_fused(system, Co, pb, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = explicit_cuda.LAUNCHES
+    nt = torch.ceil(CFG["tf"] / stability_dt(pb, CFG["dr"])).to(torch.int64)
+    bad = int((~torch.isfinite(C).all(dim=-1).all(dim=-1)
+               | ~torch.isfinite(m).all(dim=-1)).sum())
+    log(f"  fused explicit: {N} members in {wall:.3f} s = {N / wall:.2f} "
+        f"solves/s; {launches} kernel launch(es); steps per member "
+        f"{int(nt.min())}-{int(nt.max())} (mean {float(nt.double().mean()):.0f}); "
+        f"{bad} non-finite members")
+    if launches != 1:
+        raise RuntimeError(f"the explicit path launched the kernel "
+                           f"{launches} times, expected 1")
+    if bad:
+        raise RuntimeError(f"{bad} members are non-finite")
+    Nr = int(round(10.0 / CFG["dr"]))
+    if tuple(C.shape) != (N, 10, Nr + 1) or tuple(m.shape) != (N, 8):
+        raise RuntimeError(f"unexpected output shapes {tuple(C.shape)}, "
+                           f"{tuple(m.shape)}")
+
+    # members 0-3 against tight f64 RODAS4 solves of the same PDE
+    p64 = g.Params.unpack(torch.as_tensor(batch[:4], dtype=torch.float64,
+                                          device=dev))
+    ref = g.solve_stiff_batch(system, g.default_co(device=dev), p64,
+                              device=dev, method="rodas4", dr=CFG["dr"],
+                              tf=CFG["tf"], Nts=CFG["Nts"], rtol=1e-8,
+                              atol=1e-11)
+    Cref = ref.C[:, -1]
+    # |dC| <= rtol * (|C| + 0.2): the explicit scheme's O(dt) error and
+    # the 4-iteration fixed point against an adaptive solve at rtol 1e-8
+    dev_rel = float(((C[:4].double() - Cref).abs()
+                     / (Cref.abs() + 0.2)).max())
+    log(f"  members 0-3 vs f64 RODAS4 at rtol 1e-8: max |dC|/(|C|+0.2) = "
+        f"{dev_rel:.3e} (limit {EXPLICIT_VS_STIFF:.0e})")
+    if not dev_rel <= EXPLICIT_VS_STIFF:
+        raise RuntimeError("the fused explicit solve is off the f64 "
+                           "reference")
+
+    ms = cuda_ms(lambda: explicit_cuda.solve_explicit_fused(
+        system, Co, pb, **kw), reps=5, warmup=1)
+    pb4 = g.Params(D=pb.D.repeat(4, 1), k=pb.k.repeat(4, 1))
+    ms4 = cuda_ms(lambda: explicit_cuda.solve_explicit_fused(
+        system, Co, pb4, **kw), reps=3, warmup=1)
+    flops = explicit_cuda.explicit_flops(system, Nr, 4) * int(nt.sum())
+    # in: k, d_eff, dt, nt per member, c0 and m0 once; out: C and m
+    nbytes = 4 * (N * (17 + 10 + 1 + 1) + 18 + C.numel() + m.numel())
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BPS
+    log(f"  N={N}: kernel {ms:.3f} ms per launch (median of 5) = "
+        f"{N / ms * 1e3:.1f} solves/s; bound {max(t_ops, t_bytes) * 1e3:.4f}"
+        f" ms ({flops / 1e12:.4f} TFLOP = {t_ops * 1e3:.4f} ms, "
+        f"{nbytes / 1e6:.3f} MB = {t_bytes * 1e3:.5f} ms)")
+    log(f"  N={4 * N}: kernel {ms4:.3f} ms per launch (median of 3)")
+    erows.update(launches=launches, ms=ms, ms_x4_members=ms4,
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 vs_f64_stiff=dev_rel)
+    return N / wall
+
+
+def _final_state(sol):
+    return sol.C[-1], sol.m[-1]
+
+
+def _gsa6(sol):
+    from gab1_shp2_tpu_torch.models.observables import gsa_outputs
+
+    return gsa_outputs(sol, 10.0)
+
+
+def phase6(g, batch, dev):
+    """The ensemble engine and the GSA runner on the card."""
+    import torch
+    from gab1_shp2_tpu_torch.gsa import runner
+    from gab1_shp2_tpu_torch.models.params import stability_dt
+    from gab1_shp2_tpu_torch.ops import explicit_cuda
+
+    system = g.base_system()
+    # (a) the eager explicit path through run_ensemble against the kernel
+    n = min(64, N)
+    chunk = max(1, n // 2)
+    kw = dict(dr=0.5, tf=0.5)
+    Co64 = g.default_co(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (Ce, me), ok = g.run_ensemble(system, Co64, batch[:n], solver="explicit",
+                                  extract=_final_state, device=dev, Nts=2,
+                                  maxiters=20, tol=0.0, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pb = g.Params.unpack(torch.as_tensor(batch[:n], device=dev))
+    nt = torch.ceil(0.5 / stability_dt(pb, 0.5)).sort().values
+    loop_steps = sum(int(nt[min(s + chunk, n) - 1])
+                     for s in range(0, n, chunk))
+    Ck, mk = explicit_cuda.solve_explicit_fused(system, Co64, pb,
+                                                maxiters=20, device=dev,
+                                                **kw)
+    if not bool(ok.all()):
+        raise RuntimeError("run_ensemble(solver='explicit') lost members")
+    err_C = float(((Ck.double() - Ce).abs() - 3e-5 * Ce.abs()).max())
+    err_m = float(((mk.double() - me).abs() - 3e-5 * me.abs()).max())
+    log(f"  eager explicit run_ensemble N={n} dr=0.5 tf=0.5 (f64, maxiters "
+        f"20, tol 0): {wall:.2f} s, {loop_steps} loop steps, "
+        f"{wall / loop_steps * 1e3:.2f} ms per step of {chunk} members; "
+        f"vs fused f32 kernel: max(|d| - 3e-5|x|) C {err_C:.3e} (limit "
+        f"1e-4), m {err_m:.3e} (limit 1e-6)")
+    if not (err_C <= 1e-4 and err_m <= 1e-6):
+        raise RuntimeError("eager and fused explicit solves disagree")
+
+    # (b) the stiff ensemble with the GSA outputs, then quantiles
+    Co32 = g.default_co(dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ok = g.run_ensemble(system, Co32, batch[:CHUNK].astype(np.float32),
+                             solver="stiff", extract=_gsa6, device=dev,
+                             **CFG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    q = g.masked_quantiles(out, ok)
+    log(f"  stiff run_ensemble N={CHUNK} (refill, 6 GSA outputs): "
+        f"{wall:.2f} s, {int(ok.sum())}/{CHUNK} ok; medians "
+        + ", ".join(f"{v:.4g}" for v in q[1].tolist()))
+    if not bool(ok.all()):
+        raise RuntimeError("run_ensemble(solver='stiff') lost members")
+    if tuple(q.shape) != (3, 6) or not torch.isfinite(q).all():
+        raise RuntimeError("masked_quantiles is not finite of shape (3, 6)")
+
+    # (c) eFAST over the 5 initial concentrations: 5 x 65 = 325 solves
+    evaluate = runner.make_conc_evaluator(
+        system, g.default_params(dtype=torch.float32, device=dev),
+        device=dev, dr=CFG["dr"], tf=CFG["tf"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_share = []
+
+    def counted(X):
+        Y = evaluate(X)
+        zero_share.append(float((np.abs(Y).sum(axis=-1) == 0).mean()))
+        return Y
+
+    S1, ST, design = runner.run_efast(counted, runner.conc_bounds(Co64),
+                                      samples=65)
+    wall = time.perf_counter() - t0
+    log(f"  eFAST over initial concentrations: {design.X.shape[0]} solves "
+        f"in {wall:.2f} s; share of zero rows {zero_share[0]:.3f}; ST of "
+        f"[pG1S2]_average: " + ", ".join(f"{v:.3f}" for v in ST[:, 5]))
+    if S1.shape != (5, 6) or not (np.isfinite(S1).all()
+                                  and np.isfinite(ST).all()):
+        raise RuntimeError("eFAST indices are not finite of shape (5, 6)")
+
+
 def main():
     import torch
 
@@ -305,7 +562,7 @@ def main():
               "False)", file=sys.stderr)
         return 2
     import gab1_shp2_tpu_torch as g
-    from gab1_shp2_tpu_torch.ops import _build, ros23_cuda
+    from gab1_shp2_tpu_torch.ops import _build, explicit_cuda, ros23_cuda
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -316,13 +573,19 @@ def main():
     log(f"  card: {card}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
-    ros23_cuda.build(g.base_system())
-    info = _build.BUILD_LOG.get("ros23_step")
-    if info is not None:
-        log(f"  nvcc build of ros23_step.cu: {info['seconds']:.1f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    # one nvcc per source, both started together
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(mod.build, g.base_system())
+                  for mod in (ros23_cuda, explicit_cuda)]
+        for b in builds:
+            b.result()
+    for lib in ("ros23_step", "explicit_solve"):
+        info = _build.BUILD_LOG.get(lib)
+        if info is not None:
+            log(f"  nvcc build of {lib}.cu: {info['seconds']:.1f} s")
+            for line in info["log"].splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
     log(f"phase 0 wall {time.perf_counter() - t:.1f} s")
 
     batch = bench_ensemble(g)
@@ -343,7 +606,25 @@ def main():
     sps3 = phase3(g, batch, dev)
     log(f"phase 3 wall {time.perf_counter() - t:.1f} s")
 
-    log("phase 4: kernels")
+    erows = {}
+    t = time.perf_counter()
+    log("phase 4: fused explicit solve vs solve_explicit_plain, f32, "
+        "maxiters 4")
+    phase4(g, batch, dev, erows)
+    log(f"phase 4 wall {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    log("phase 5: the explicit path through the kernel, N=1024, dr=0.2, "
+        "tf=5")
+    sps5 = phase5(g, batch, dev, erows)
+    log(f"phase 5 wall {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    log("phase 6: the ensemble engine and the GSA runner")
+    phase6(g, batch, dev)
+    log(f"phase 6 wall {time.perf_counter() - t:.1f} s")
+
+    log("phase 7: kernels")
     kernels = [dict(
         name="ros23_step_fused", route="cuda",
         source="gab1_shp2_tpu_torch/csrc/ros23_step.cu",
@@ -354,12 +635,24 @@ def main():
         est_scaled_err=rows["est_scaled_err"],
         ms=rows["ms"], ms_x4_lanes=rows["ms_x4_lanes"],
         plain_ms=rows["plain_ms"], bound_ms=rows["bound_ms"],
-        bound_by=rows["bound_by"], library_ms=None)]
-    print(json.dumps({"kernels": kernels}), flush=True)
+        bound_by=rows["bound_by"], library_ms=None), dict(
+        name="solve_explicit_fused", route="cuda",
+        source="gab1_shp2_tpu_torch/csrc/explicit_solve.cu",
+        replaces="gab1_shp2_tpu/ops/explicit_pallas.py:186 "
+                 "(_run_block, body _make_kernel, step _step_fn)",
+        launches=erows["launches"], max_abs_err=erows["max_abs_err"],
+        max_err=erows["max_err"], vs_f64_stiff=erows["vs_f64_stiff"],
+        ms=erows["ms"], ms_x4_members=erows["ms_x4_members"],
+        plain_ms=erows["plain_ms"], plain_shape=erows["plain_shape"],
+        ms_at_plain_shape=erows["ms_at_plain_shape"],
+        bound_ms=erows["bound_ms"], bound_by=erows["bound_by"],
+        library_ms=None)]
     log(f"solves/s (first readings, not a benchmark): chunked fused "
-        f"rosenbrock23 {sps2:.2f}, refill rodas4 {sps3:.2f}")
+        f"rosenbrock23 {sps2:.2f}, refill rodas4 {sps3:.2f}, fused "
+        f"explicit {sps5:.2f}")
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

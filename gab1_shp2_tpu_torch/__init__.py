@@ -34,6 +34,11 @@ from gab1_shp2_tpu_torch.ops.batch_stiff import (  # noqa: E402
     solve_stiff_batch,
     solve_stiff_refill,
 )
+from gab1_shp2_tpu_torch.ops.explicit import solve_explicit  # noqa: E402
+from gab1_shp2_tpu_torch.ensemble.engine import (  # noqa: E402
+    masked_quantiles,
+    run_ensemble,
+)
 
 __all__ = [
     "Params",
@@ -48,4 +53,7 @@ __all__ = [
     "rect_system",
     "solve_stiff_batch",
     "solve_stiff_refill",
+    "solve_explicit",
+    "run_ensemble",
+    "masked_quantiles",
 ]

@@ -14,8 +14,8 @@ variants become configuration —
 
 The network is expressed as mass-action reactions over named species;
 ``gab1_shp2_tpu_torch.ops.rhs`` evaluates these tables as eager torch
-expressions, and ``gab1_shp2_tpu_torch.ops.ros23_cuda`` generates the
-CUDA kernel's rate functions from the same tables.  This module is a
+expressions, and ``gab1_shp2_tpu_torch.ops.rates_codegen`` generates the
+CUDA kernels' rate functions from the same tables.  This module is a
 copy of ``gab1_shp2_tpu/models/system.py``; the tests hold the two equal.
 
 Bulk reactions, membrane reactions, and surface (Robin-flux) couplings

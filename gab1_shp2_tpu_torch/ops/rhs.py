@@ -1,13 +1,16 @@
 """Eager torch evaluation of the declarative reaction system.
 
-Counterpart of the lane parts of ``gab1_shp2_tpu/ops/rhs.py``:
+Counterpart of ``gab1_shp2_tpu/ops/rhs.py``:
 
   * ``bulk_rates``  — mass-action net rates for the 10 bulk species,
                       vectorized over any trailing (node, lane) axes,
   * ``memb_rates``  — the 8 membrane ODE right-hand sides,
   * ``bc_closure``  — the Robin (reactive-flux) boundary values of the
                       bulk species at r = R by ghost-node elimination
-                      (``basepdesolver.jl:197-215``).
+                      (``basepdesolver.jl:197-215``),
+  * ``laplacian``   — the node-major diffusion stencil of the explicit
+                      path, and ``full_profile`` (interior nodes plus the
+                      two algebraic boundary nodes).
 
 The loops over the reaction tables run in Python on every call; each term
 is one small tensor op.  All functions are written without in-place
@@ -34,6 +37,7 @@ from gab1_shp2_tpu_torch.models.system import (
     D_ASFK_MEMB,
     ETOT_MEMBERS,
     ETOT_SCALE,
+    Geometry,
     ReactionDiffusionSystem,
 )
 
@@ -152,9 +156,30 @@ def bc_closure(system: ReactionDiffusionSystem, C_near: torch.Tensor,
                      dim=-1)
 
 
+def laplacian(system: ReactionDiffusionSystem, C: torch.Tensor,
+              r: torch.Tensor, dr) -> torch.Tensor:
+    """Diffusion stencil at interior nodes.
+
+    ``C``: (..., 10, n) with n = Nr+1 nodes (node 0 at r=0, node Nr at
+    r=R); ``r``: (n,).  Returns (..., 10, n-2) for nodes 1..n-2.
+    Spherical adds the metric term ``(u_{j+1}-u_{j-1})/(r dr)``
+    (``basepdesolver.jl:151``); Cartesian drops it
+    (``basepdesolver_rect.jl:132``).
+    """
+    um, uc, up = C[..., :-2], C[..., 1:-1], C[..., 2:]
+    # (up-uc)-(uc-um) instead of up-2uc+um: each inner subtraction of
+    # neighbouring values rounds relative to the difference, so the
+    # second difference carries ~eps relative error instead of
+    # ~eps*|C|/|d2C| (it matters in f32 and is harmless in f64)
+    lap = ((up - uc) - (uc - um)) / dr**2
+    if system.geometry is Geometry.SPHERICAL:
+        lap = lap + (up - um) / (r[1:-1] * dr)
+    return lap
+
+
 class MolState(NamedTuple):
-    """Method-of-lines state: interior bulk nodes ``C_int`` (10, Nr-1)
-    and membrane species ``m`` (8,)."""
+    """Method-of-lines state: interior bulk nodes ``C_int`` (..., 10, Nr-1)
+    and membrane species ``m`` (..., 8)."""
 
     C_int: torch.Tensor
     m: torch.Tensor
@@ -169,3 +194,11 @@ def initial_state(Co: torch.Tensor, Nr: int) -> MolState:
     m = torch.zeros((N_MEMB,), dtype=Co.dtype, device=Co.device)
     m[MEMB["mE"]] = Co[4]
     return MolState(C_int=C, m=m)
+
+
+def full_profile(system: ReactionDiffusionSystem, y: MolState,
+                 k: Dict[str, torch.Tensor], d_eff: torch.Tensor,
+                 dr) -> torch.Tensor:
+    """The (..., 10, Nr+1) bulk profile including both boundary nodes."""
+    C_R = bc_closure(system, y.C_int[..., -1], y.m, k, d_eff, dr)
+    return torch.cat([y.C_int[..., :1], y.C_int, C_R[..., None]], dim=-1)

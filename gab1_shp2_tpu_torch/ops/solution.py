@@ -55,3 +55,10 @@ class Solution(NamedTuple):
     def EGFR_SHP2(self) -> torch.Tensor:
         """Percent EGFR with SHP2 bound: EG2PG1S*100/CoEGFR."""
         return self.memb("EG2PG1S") * 100.0 / self.CoEGFR[..., None]
+
+
+def spatial_average(C_of_r: torch.Tensor, r: torch.Tensor, R) -> torch.Tensor:
+    """Volume average ``3/R^3 * int_0^R C r^2 dr`` by trapezoid
+    (``sapdesolver.jl:315``).  ``C_of_r``'s trailing axis is the node
+    axis; ``r`` is (n,) or broadcasts against it."""
+    return torch.trapezoid(C_of_r * r**2, r, dim=-1) * 3.0 / R**3

@@ -15,6 +15,11 @@ kernel's own y1 <= 1e-4 (the direct f1 comparison inherits y1's rounding
 amplified by the stiff Jacobian); est within 1e-2 * max(1, |est_plain|)
 in the solver's scaled norm (rtol 1e-4, atol 1e-7) — est is a difference
 of three stage vectors, so its rounding scales with its own size.
+
+Tolerance for the fused explicit solve against solve_explicit_plain (f32,
+a few hundred steps): relative norm error of C and of m <= 1e-4, taken in
+float64 (memb_sfk holds values ~1e32); the two differ by FMA contraction
+and by the card's reciprocal-multiply for ``x / scalar``.
 """
 
 import numpy as np
@@ -22,7 +27,7 @@ import pytest
 import torch
 
 import gab1_shp2_tpu_torch as tg
-from gab1_shp2_tpu_torch.ops import ros23_cuda
+from gab1_shp2_tpu_torch.ops import explicit_cuda, ros23_cuda
 from gab1_shp2_tpu_torch.ops.batch_stiff import _SolverCtx, make_mol_rhs_lanes
 from gab1_shp2_tpu_torch.ops.rhs import effective_diffusivities
 
@@ -123,6 +128,101 @@ def test_fused_solve_matches_unfused_on_card(cuda):
     assert err < 2e-3
 
 
+def _ensemble(B, seed=3):
+    rng = np.random.default_rng(seed)
+    p0 = tg.default_params(device="cpu").pack().numpy()
+    return p0[None] * np.exp(rng.normal(0, 0.2, (B, 24)))
+
+
+def _rel_norm(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dr,tf", [(0.5, 0.2), (0.02, 2e-4)],
+                         ids=["21-nodes", "501-nodes"])
+@pytest.mark.parametrize("variant", ["base_system", "rect_system",
+                                     "memb_sfk_system"])
+def test_explicit_kernel_matches_plain(cuda, variant, dr, tf):
+    """Both instantiations of the kernel (blocks of up to 256 threads, and
+    of up to 1024) against the plain version; 37 members with different
+    step counts."""
+    system = getattr(tg, variant)()
+    pb = tg.Params.unpack(torch.as_tensor(_ensemble(37), dtype=torch.float32,
+                                          device=cuda))
+    Co = tg.default_co(dtype=torch.float32, device=cuda)
+    kw = dict(dr=dr, tf=tf, maxiters=4)
+    before = explicit_cuda.LAUNCHES
+    Ck, mk = explicit_cuda.solve_explicit_fused(system, Co, pb, **kw)
+    assert explicit_cuda.LAUNCHES == before + 1
+    Cp, mp = explicit_cuda.solve_explicit_plain(system, Co, pb, **kw)
+    torch.cuda.synchronize()
+    assert explicit_cuda.LAUNCHES == before + 1
+    assert Ck.device.type == "cuda" and Ck.dtype == torch.float32
+    assert tuple(Ck.shape) == tuple(Cp.shape) and tuple(mk.shape) == (37, 8)
+    assert torch.isfinite(Ck).all() and torch.isfinite(mk).all()
+    assert _rel_norm(Ck, Cp) <= 1e-4
+    assert _rel_norm(mk, mp) <= 1e-4
+
+
+def test_explicit_block_launches_and_f64_inputs(cuda):
+    """``block`` splits the ensemble into ceil(B/block) launches with the
+    same result; f64 inputs on the CPU are cast and moved."""
+    P = _ensemble(10)
+    pb64 = tg.Params.unpack(torch.as_tensor(P))
+    Co64 = tg.default_co(device="cpu")
+    kw = dict(dr=0.5, tf=0.1, maxiters=4)
+    explicit_cuda.LAUNCHES = 0
+    C1, m1 = explicit_cuda.solve_explicit_fused(tg.base_system(), Co64, pb64,
+                                                **kw)
+    assert explicit_cuda.LAUNCHES == 1
+    C4, m4 = explicit_cuda.solve_explicit_fused(tg.base_system(), Co64, pb64,
+                                                block=4, **kw)
+    torch.cuda.synchronize()
+    assert explicit_cuda.LAUNCHES == 1 + 3
+    assert C1.device.type == "cuda" and C1.dtype == torch.float32
+    assert torch.equal(C1, C4) and torch.equal(m1, m4)
+
+
+def test_explicit_wrapper_rejects_bad_inputs(cuda):
+    pb = tg.Params.unpack(torch.as_tensor(_ensemble(4)))
+    Co = tg.default_co(device="cpu")
+    before = explicit_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="1026-node"):
+        explicit_cuda.solve_explicit_fused(tg.base_system(), Co, pb,
+                                           R=10.26, dr=0.01, tf=1e-6)
+    with pytest.raises(ValueError, match="maxiters"):
+        explicit_cuda.solve_explicit_fused(tg.base_system(), Co, pb,
+                                           maxiters=0)
+    with pytest.raises(ValueError, match="block"):
+        explicit_cuda.solve_explicit_fused(tg.base_system(), Co, pb, block=0)
+    with pytest.raises(ValueError, match="batched"):
+        explicit_cuda.solve_explicit_fused(
+            tg.base_system(), Co, tg.default_params(device="cpu"))
+    with pytest.raises(ValueError, match="shape"):
+        explicit_cuda.solve_explicit_fused(tg.base_system(), Co[:4], pb)
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        explicit_cuda.solve_explicit_fused(tg.base_system(), Co, pb,
+                                           device="meta")
+    assert explicit_cuda.LAUNCHES == before
+
+
+def _final_pg1s(sol):
+    return sol.PG1Stot[-1]
+
+
 def test_default_device_is_the_card(cuda):
     assert tg.default_params().D.device.type == "cuda"
     assert tg.default_co().device.type == "cuda"
+    P = _ensemble(4, seed=1)
+    kw = dict(extract=_final_pg1s, dr=1.0, tf=0.2, Nts=2)
+    for solver in ("stiff", "explicit"):
+        out, ok = tg.run_ensemble(tg.base_system(),
+                                  tg.default_co(device="cpu"), P,
+                                  solver=solver, **kw)
+        assert out.device.type == "cuda" and ok.device.type == "cuda"
+        assert bool(ok.all()) and tuple(out.shape) == (4, 11)
+    sol = tg.solve_explicit(tg.base_system(), tg.default_co(device="cpu"),
+                            tg.default_params(device="cpu"), dr=1.0, tf=0.05,
+                            Nts=1)
+    assert sol.C.device.type == "cuda"

@@ -149,6 +149,15 @@ def test_import_pulls_in_no_jax():
         "import gab1_shp2_tpu_torch.ops.ros23_cuda\n"
         "import gab1_shp2_tpu_torch.ops._build\n"
         "import gab1_shp2_tpu_torch.ops.solution\n"
+        "import gab1_shp2_tpu_torch.ops.rates_codegen\n"
+        "import gab1_shp2_tpu_torch.ops.explicit\n"
+        "import gab1_shp2_tpu_torch.ops.explicit_cuda\n"
+        "import gab1_shp2_tpu_torch.models.observables\n"
+        "import gab1_shp2_tpu_torch.models.rates\n"
+        "import gab1_shp2_tpu_torch.ensemble.engine\n"
+        "import gab1_shp2_tpu_torch.gsa.efast\n"
+        "import gab1_shp2_tpu_torch.gsa.sobol\n"
+        "import gab1_shp2_tpu_torch.gsa.runner\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'gab1_shp2_tpu' or m.startswith('gab1_shp2_tpu.')]\n"
