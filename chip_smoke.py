@@ -14,16 +14,24 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
 
   0. set-up: card, power limit, versions, both kernel builds (nvcc,
      sm_90a, started together);
-  1. the fused Rosenbrock23 kernel against ros23_step_plain at B=256 on
-     a mid-transient state, for the base, rect and memb_sfk systems;
-     CUDA-event times of both;
+  1. the fused Rosenbrock23 kernel against ros23_step_plain on
+     mid-transient states of the base, rect and memb_sfk systems: at
+     B=256, dr=0.2 (NB=50, the arena in shared memory, two blocks an SM),
+     and at B=64 on dr=0.1 (NB=100, shared, one block an SM) and dr=0.05
+     (NB=200, the arena in global memory); CUDA-event times of both at
+     B=256, of the kernel at B=1, 132, 264 and 1024, of its parts (bands,
+     factor, solves and right-hand sides) and of two variants (128
+     threads a block, the arena in global memory), the kernel's as device
+     times of launches replayed from a CUDA graph; blocks per SM from the
+     occupancy calculator;
   2. the main path through the kernel: chunked f32 Rosenbrock23
      (step_impl="fused"), N=1024 in chunks of 256; launch counts are
      reset just before and read just after; chunk 0 is compared with the
      unfused step (step_impl="torch");
   3. the bench headline in eager PyTorch: f32 RODAS4 under the
      lane-refill scheduler, N=1024, 256 lanes; member 0 against a tight
-     f64 RODAS4 solve;
+     f64 RODAS4 solve (members 0-3 at rtol 1e-8, solved once for this
+     phase and phase 5);
   4. the fused explicit solve against solve_explicit_plain at B=256,
      tf=0.25 for base, rect and memb_sfk, and on two finer grids (201
      and 501 nodes); CUDA-event times of the plain version and of the
@@ -55,6 +63,9 @@ import numpy as np
 N = 1024
 CHUNK = 256
 CFG = dict(dr=0.2, tf=5.0, Nts=2, rtol=1e-4, atol=1e-7)
+# finer grids of phase 1, as (dr, lanes): dr=0.1 (NB=100, the kernel's arena
+# fills an SM's shared memory) and dr=0.05 (NB=200, it lies in global memory)
+FINE_GRIDS = ((0.1, 64), (0.05, 64))
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 on the CUDA cores (dense)
 PEAK_HBM_BPS = 3.35e12   # H100 SXM HBM3
 # fused f32 explicit solve against f64 RODAS4 at rtol 1e-8, as
@@ -114,56 +125,113 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-def phase1(g, batch, dev, rows):
-    """Kernel against its plain version on mid-transient states."""
+def graph_ms(fn, reps=25, launches=20):
+    """Device time of one call of ``fn`` in ms: ``launches`` calls are
+    captured into a CUDA graph, and the median CUDA-event time of ``reps``
+    replays is divided by ``launches``.  For kernels that take less time
+    than the host needs to enqueue them, which :func:`cuda_ms` would time
+    as the host's pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
+
+
+def step_case(g, name, system, batch, dev, B, dr):
+    """The kernel against ros23_step_plain on a mid-transient state of the
+    first ``B`` bench members on the grid ``dr``; raises if they disagree.
+    Returns the errors, the step's arguments, the members and a solver
+    context for that grid."""
     import torch
     from gab1_shp2_tpu_torch.ops import ros23_cuda
     from gab1_shp2_tpu_torch.ops.batch_stiff import (_SolverCtx,
                                                      make_mol_rhs_lanes)
     from gab1_shp2_tpu_torch.ops.rhs import effective_diffusivities
 
-    B, R, dr = CHUNK, 10.0, CFG["dr"]
+    R = 10.0
     Nr = int(round(R / dr))
     p = g.Params.unpack(torch.as_tensor(batch[:B], dtype=torch.float32,
                                         device=dev))
     Co = g.default_co(dtype=torch.float32, device=dev)
     h = torch.as_tensor(np.logspace(-3, -1, B), dtype=torch.float32,
                         device=dev)
-    result = {}
-    for name, system in (("base", g.base_system()),
-                         ("rect", g.rect_system()),
-                         ("memb_sfk", g.memb_sfk_system())):
-        # a mid-transient state: the ensemble stepped to t=0.5 min
-        sol = g.solve_stiff_batch(system, Co, p, device=dev, dr=dr, tf=0.5,
-                                  Nts=1, rtol=1e-4, atol=1e-7,
-                                  method="rodas4")
-        y = state_from_solution(sol, Nr)
-        rhs, _ = make_mol_rhs_lanes(system, R, dr)
-        f_n = rhs(y, p).contiguous()
-        k = p.k.contiguous()
-        d_eff = effective_diffusivities(system, p).contiguous()
-        args = (system, y, f_n, h, k, d_eff, Nr, dr)
-        yk, fk, ek = ros23_cuda.ros23_step_fused(*args)
-        yp, fp, ep = ros23_cuda.ros23_step_plain(*args)
+    # a mid-transient state: the ensemble stepped to t=0.5 min
+    sol = g.solve_stiff_batch(system, Co, p, device=dev, dr=dr, tf=0.5,
+                              Nts=1, rtol=1e-4, atol=1e-7, method="rodas4")
+    y = state_from_solution(sol, Nr)
+    rhs, _ = make_mol_rhs_lanes(system, R, dr)
+    f_n = rhs(y, p).contiguous()
+    k = p.k.contiguous()
+    d_eff = effective_diffusivities(system, p).contiguous()
+    args = (system, y, f_n, h, k, d_eff, Nr, dr)
+    yk, fk, ek = ros23_cuda.ros23_step_fused(*args)
+    yp, fp, ep = ros23_cuda.ros23_step_plain(*args)
+    torch.cuda.synchronize()
+    for t in (yk, fk, ek):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"{name}: the kernel returned non-finite "
+                               "values")
+    ctx = _SolverCtx(system, R, dr, 2, 1e-4, 1e-7, 5.0, torch.float32,
+                     dev, None, "rosenbrock23", "torch")
+    err_y = float((yk - yp).norm() / yp.norm())
+    err_f = float((fk - fp).norm() / fp.norm())
+    # f1 = f(y1): the plain right-hand side at the kernel's own y1
+    # isolates the kernel's RHS from the y1 rounding, which the stiff
+    # Jacobian amplifies by ~|J||y|/|f| in the direct comparison
+    f_at_yk = rhs(yk, p)
+    err_fc = float((fk - f_at_yk).norm() / f_at_yk.norm())
+    err_e = float(ctx.scaled_norm(ek - ep, y, yp).max())
+    abs_y = float((yk - yp).abs().max())
+    arena = ("shared" if ros23_cuda.arena_in_shared(Nr) else "global")
+    log(f"  {name} NB={Nr} B={B} ({arena} arena): y1 rel-norm err "
+        f"{err_y:.3e}; f1 rel-norm err {err_f:.3e} (vs f(kernel y1): "
+        f"{err_fc:.3e}); est scaled-norm diff {err_e:.3e}; y1 max abs err "
+        f"{abs_y:.3e}")
+    # the direct f1 limit is 1e-3 down to dr=0.1; on a finer grid it grows
+    # as the stiffness that amplifies y1's rounding, (0.2 / dr)^2
+    lim_f = 1e-3 if dr >= 0.1 else 1e-3 * (0.2 / dr) ** 2
+    if not (err_y <= 1e-4 and err_fc <= 1e-4 and err_f <= lim_f
+            and err_e <= 1e-2):
+        raise RuntimeError(f"{name} NB={Nr}: kernel disagrees with "
+                           "ros23_step_plain")
+    if arena == "shared" and Nr > 50:
+        # the same launch with the arena in global memory: the same bits,
+        # so the same limits hold on that path at this shape
+        before = ros23_cuda.LAUNCHES
+        in_global = ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff,
+                                                dr, global_arena=True)
         torch.cuda.synchronize()
-        for t in (yk, fk, ek):
-            if not torch.isfinite(t).all():
-                raise RuntimeError(f"{name}: the kernel returned non-finite "
-                                   "values")
-        ctx = _SolverCtx(system, R, dr, 2, 1e-4, 1e-7, 5.0, torch.float32,
-                         dev, None, "rosenbrock23", "torch")
-        err_y = float((yk - yp).norm() / yp.norm())
-        err_f = float((fk - fp).norm() / fp.norm())
-        # f1 = f(y1): the plain right-hand side at the kernel's own y1
-        # isolates the kernel's RHS from the y1 rounding, which the stiff
-        # Jacobian amplifies by ~|J||y|/|f| in the direct comparison
-        f_at_yk = rhs(yk, p)
-        err_fc = float((fk - f_at_yk).norm() / f_at_yk.norm())
-        err_e = float(ctx.scaled_norm(ek - ep, y, yp).max())
-        abs_y = float((yk - yp).abs().max())
-        log(f"  {name}: y1 rel-norm err {err_y:.3e}; f1 rel-norm err "
-            f"{err_f:.3e} (vs f(kernel y1): {err_fc:.3e}); est scaled-norm "
-            f"diff {err_e:.3e}; y1 max abs err {abs_y:.3e}")
+        ros23_cuda.LAUNCHES = before
+        if not all(torch.equal(a, b)
+                   for a, b in zip((yk, fk, ek), in_global)):
+            raise RuntimeError(f"{name} NB={Nr}: the global arena gives "
+                               "other bits than the shared one")
+        log(f"  {name} NB={Nr} B={B} (global arena): bit-identical to the "
+            "shared arena")
+    errs = dict(err_y=err_y, err_f=err_f, err_fc=err_fc, err_e=err_e,
+                abs_y=abs_y)
+    return errs, args, p, ctx, (yp, fp)
+
+
+def phase1(g, batch, dev, rows):
+    """Kernel against its plain version on mid-transient states."""
+    import torch
+    from gab1_shp2_tpu_torch.ops import ros23_cuda
+
+    B, dr = CHUNK, CFG["dr"]
+    Nr = int(round(10.0 / dr))
+    systems = (("base", g.base_system()), ("rect", g.rect_system()),
+               ("memb_sfk", g.memb_sfk_system()))
+    result = []
+    for name, system in systems:
+        errs, args, p, ctx, (yp, fp) = step_case(g, name, system, batch, dev,
+                                                 B, dr)
+        result.append(errs)
         if name == "base":
             # the f32 floor of the direct f1 comparison: the same plain
             # step on the CPU (other op order) against the card's
@@ -172,56 +240,132 @@ def phase1(g, batch, dev, rows):
             log(f"  base, plain step CPU vs card: y1 rel-norm "
                 f"{float((yc - yp.cpu()).norm() / yc.norm()):.3e}, f1 "
                 f"rel-norm {float((fc - fp.cpu()).norm() / fc.norm()):.3e}")
-        if not (err_y <= 1e-4 and err_fc <= 1e-4 and err_f <= 1e-3
-                and err_e <= 1e-2):
-            raise RuntimeError(f"{name}: kernel disagrees with "
-                               "ros23_step_plain")
-        result[name] = dict(err_y=err_y, err_f=err_f, err_fc=err_fc,
-                            err_e=err_e, abs_y=abs_y)
-        if name == "base":
-            before = ros23_cuda.LAUNCHES
-            ms = cuda_ms(lambda: ros23_cuda.ros23_step_fused(*args), reps=25)
-            plain_ms = cuda_ms(lambda: ros23_cuda.ros23_step_plain(*args),
-                               reps=5, warmup=1)
-            # four times the lanes (the same states, tiled): how the time
-            # scales with B shows whether lanes or SMs are the limit
-            args4 = (system, y.repeat(1, 1, 4), f_n.repeat(1, 1, 4),
-                     h.repeat(4), k.repeat(4, 1), d_eff.repeat(4, 1), Nr, dr)
-            ms4 = cuda_ms(lambda: ros23_cuda.ros23_step_fused(*args4),
-                          reps=10)
-            ros23_cuda.LAUNCHES = before   # timing launches do not count
-            flops = ros23_cuda.step_flops(Nr) * B
-            nbytes = 4 * (5 * y.numel() + h.numel() + k.numel()
-                          + d_eff.numel())
-            bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BPS)
-            bound_by = ("operations" if flops / PEAK_F32_FLOPS
-                        >= nbytes / PEAK_HBM_BPS else "bytes")
-            log(f"  base B={B}: kernel {ms:.4f} ms (median of 25), plain "
-                f"{plain_ms:.4f} ms (median of 5); bound {bound_s * 1e3:.5f}"
-                f" ms by {bound_by} ({flops / 1e6:.1f} MFLOP, "
-                f"{nbytes / 1e6:.3f} MB)")
-            log(f"  base B={4 * B}: kernel {ms4:.4f} ms (median of 10)")
-            # the eager layers one RODAS4 step is made of (the headline's
-            # step: 6 RHS, 1 band build, 1 factor, 6 solves)
-            lp = ctx.lane_params(p)
-            Lj, Dj, Uj = ctx.bands(y, lp)
-            gh = 0.25 * h[None, None, None, :]     # RODAS4's g = 0.25
-            W = (-gh * Lj, ctx.eye_l - gh * Dj, -gh * Uj)
-            fac = ctx.factor(*W)
-            layer_ms = {
-                "rhs": cuda_ms(lambda: ctx.make_f(lp)(y), reps=5),
-                "bands": cuda_ms(lambda: ctx.bands(y, lp), reps=5),
-                "factor": cuda_ms(lambda: ctx.factor(*W), reps=5),
-                "solve": cuda_ms(lambda: ctx.solve(fac, f_n), reps=5)}
-            log(f"  eager layers at B={B} (median of 5): " + ", ".join(
-                f"{n} {v:.3f} ms" for n, v in layer_ms.items()))
-            rows.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                        bound_by=bound_by, ms_x4_lanes=ms4)
-    rows["max_abs_err"] = max(r["abs_y"] for r in result.values())
-    rows["max_err"] = max(max(r["err_y"], r["err_fc"])
-                          for r in result.values())
-    rows["f1_direct_err"] = max(r["err_f"] for r in result.values())
-    rows["est_scaled_err"] = max(r["err_e"] for r in result.values())
+            base = (system, args, p, ctx)
+    fine = []
+    for fine_dr, fine_B in FINE_GRIDS:
+        for name, system in systems:
+            errs, fargs, _, _, _ = step_case(g, name, system, batch, dev,
+                                             fine_B, fine_dr)
+            result.append(errs)
+            if name == "base":
+                fine.append(fargs)
+
+    system, args, p, ctx = base
+    _, y, f_n, h, k, d_eff, _, _ = args
+    before = ros23_cuda.LAUNCHES
+
+    def lanes(n):
+        """The step's arguments for n lanes: the B states, tiled or cut."""
+        m = -(-n // B)
+        return (system, y.repeat(1, 1, m)[..., :n].contiguous(),
+                f_n.repeat(1, 1, m)[..., :n].contiguous(),
+                h.repeat(m)[:n].contiguous(),
+                k.repeat(m, 1)[:n].contiguous(),
+                d_eff.repeat(m, 1)[:n].contiguous(), Nr, dr)
+
+    # device times of the kernel: 20 launches replayed from a CUDA graph,
+    # median of 25 replays; one call launched alone from Python is paced by
+    # the host and timed beside it
+    ms = graph_ms(lambda: ros23_cuda.ros23_step_fused(*args))
+    call_ms = cuda_ms(lambda: ros23_cuda.ros23_step_fused(*args), reps=25)
+    plain_ms = cuda_ms(lambda: ros23_cuda.ros23_step_plain(*args),
+                       reps=5, warmup=1)
+    # other lane counts (the same states, tiled): 132 blocks are one per
+    # SM, 264 two per SM; four times the lanes show how the time scales
+    by_lanes = {}
+    for n in (1, 132, 264, 4 * B):
+        a_n = lanes(n)
+        by_lanes[n] = graph_ms(lambda: ros23_cuda.ros23_step_fused(*a_n))
+    ms4 = by_lanes[4 * B]
+    flops = ros23_cuda.step_flops(Nr) * B
+    nbytes = 4 * (5 * y.numel() + h.numel() + k.numel() + d_eff.numel())
+    bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BPS)
+    bound_by = ("operations" if flops / PEAK_F32_FLOPS
+                >= nbytes / PEAK_HBM_BPS else "bytes")
+    log(f"  base B={B}: kernel {ms:.4f} ms per launch (20 launches in a "
+        f"CUDA graph, median of 25 replays; one call launched alone: "
+        f"{call_ms:.4f} ms, median of 25), plain {plain_ms:.4f} ms (median "
+        f"of 5); bound {bound_s * 1e3:.5f} ms by {bound_by} "
+        f"({flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB)")
+    log(f"  base B=1: kernel {by_lanes[1]:.4f} ms, B=132: "
+        f"{by_lanes[132]:.4f} ms, B=264: {by_lanes[264]:.4f} ms, "
+        f"B={4 * B}: {ms4:.4f} ms (graph replays as above)")
+
+    # occupancy and arena, from the library
+    occ = {}
+    for nb in (Nr, fine[0][6], fine[1][6]):
+        occ[nb] = dict(
+            arena_bytes=ros23_cuda.arena_bytes(nb),
+            arena="shared" if ros23_cuda.arena_in_shared(nb) else "global",
+            blocks_per_sm=ros23_cuda.blocks_per_sm(system, nb))
+        log(f"  NB={nb}: arena {occ[nb]['arena_bytes']} B per lane in "
+            f"{occ[nb]['arena']} memory, {occ[nb]['blocks_per_sm']} blocks "
+            f"of 256 threads per SM (occupancy calculator)")
+    occ128 = ros23_cuda.blocks_per_sm(system, Nr, threads=128)
+
+    # the kernel's parts: the same kernel stopped after the bands and
+    # after the factor, timed in turns with the whole step
+    def probe(**kw):
+        return lambda: ros23_cuda.ros23_step_probe(system, y, f_n, h, k,
+                                                   d_eff, dr, **kw)
+
+    t_bands = graph_ms(probe(stop_after=1))
+    t_factor = graph_ms(probe(stop_after=2))
+    t_all = graph_ms(probe(stop_after=3))
+    parts = dict(bands=t_bands, factor=t_factor - t_bands,
+                 solves_rhs=t_all - t_factor)
+    log(f"  parts at B={B} (graph replays; loads and bands {t_bands:.4f}, "
+        f"through the factor {t_factor:.4f}, whole step {t_all:.4f} ms): "
+        f"bands {parts['bands']:.4f}, factor {parts['factor']:.4f}, three "
+        f"solves + two RHS + stores {parts['solves_rhs']:.4f} ms")
+    # variants, in turns within this call: 128 threads a block; the arena
+    # in global memory at the bench shape
+    t128 = graph_ms(probe(threads=128))
+    t256 = graph_ms(probe(threads=256))
+    tglob = graph_ms(probe(global_arena=True))
+    log(f"  variants at B={B} (graph replays): 128 threads {t128:.4f} ms "
+        f"({occ128} blocks per SM), 256 threads {t256:.4f} ms, 256 threads "
+        f"with the arena in global memory {tglob:.4f} ms")
+    # the first finer grid: shared arena (as the wrapper chooses) against
+    # global; the second through the wrapper
+    fsys, fy, ff, fh, fk, fd, fnb, fdr = fine[0]
+    f_sh = graph_ms(lambda: ros23_cuda.ros23_step_probe(
+        fsys, fy, ff, fh, fk, fd, fdr))
+    f_gl = graph_ms(lambda: ros23_cuda.ros23_step_probe(
+        fsys, fy, ff, fh, fk, fd, fdr, global_arena=True))
+    f200 = graph_ms(lambda: ros23_cuda.ros23_step_fused(*fine[1]))
+    log(f"  NB={fnb} B={fy.shape[-1]}: shared arena {f_sh:.4f} ms, global "
+        f"arena {f_gl:.4f} ms; NB={fine[1][6]} B={fine[1][1].shape[-1]} "
+        f"(global arena): {f200:.4f} ms (graph replays)")
+    ros23_cuda.LAUNCHES = before   # timing launches do not count
+
+    # the eager layers one RODAS4 step is made of (the headline's
+    # step: 6 RHS, 1 band build, 1 factor, 6 solves)
+    lp = ctx.lane_params(p)
+    Lj, Dj, Uj = ctx.bands(y, lp)
+    gh = 0.25 * h[None, None, None, :]     # RODAS4's g = 0.25
+    W = (-gh * Lj, ctx.eye_l - gh * Dj, -gh * Uj)
+    fac = ctx.factor(*W)
+    layer_ms = {
+        "rhs": cuda_ms(lambda: ctx.make_f(lp)(y), reps=5),
+        "bands": cuda_ms(lambda: ctx.bands(y, lp), reps=5),
+        "factor": cuda_ms(lambda: ctx.factor(*W), reps=5),
+        "solve": cuda_ms(lambda: ctx.solve(fac, f_n), reps=5)}
+    log(f"  eager layers at B={B} (median of 5): " + ", ".join(
+        f"{n} {v:.3f} ms" for n, v in layer_ms.items()))
+    rows.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+                bound_by=bound_by, ms_one_call=call_ms, ms_x4_lanes=ms4,
+                ms_1_lane=by_lanes[1], ms_132_lanes=by_lanes[132],
+                ms_264_lanes=by_lanes[264], parts_ms=parts,
+                blocks_per_sm=occ[Nr]["blocks_per_sm"],
+                arena_bytes=occ[Nr]["arena_bytes"], ms_128_threads=t128,
+                ms_global_arena=tglob, ms_nb100_b64=f_sh,
+                ms_nb100_b64_global_arena=f_gl, ms_nb200_b64=f200,
+                eager_rhs_ms=layer_ms["rhs"])
+    rows["max_abs_err"] = max(r["abs_y"] for r in result)
+    rows["max_err"] = max(max(r["err_y"], r["err_fc"]) for r in result)
+    rows["f1_direct_err"] = max(r["err_f"] for r in result)
+    rows["est_scaled_err"] = max(r["err_e"] for r in result)
 
 
 def phase2(g, batch, dev, rows):
@@ -279,7 +423,25 @@ def _final_C(sol):
     return sol.C[-1]
 
 
-def phase3(g, batch, dev):
+def f64_reference(g, batch, dev):
+    """Final profiles of members 0-3 from tight f64 RODAS4 solves (rtol
+    1e-8): the yardstick of phases 3 and 5."""
+    import torch
+
+    p64 = g.Params.unpack(torch.as_tensor(batch[:4], dtype=torch.float64,
+                                          device=dev))
+    t0 = time.perf_counter()
+    ref = g.solve_stiff_batch(g.base_system(), g.default_co(device=dev), p64,
+                              device=dev, method="rodas4", dr=CFG["dr"],
+                              tf=CFG["tf"], Nts=CFG["Nts"], rtol=1e-8,
+                              atol=1e-11)
+    torch.cuda.synchronize()
+    log(f"  f64 RODAS4 at rtol 1e-8, members 0-3: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ref.C[:, -1]
+
+
+def phase3(g, batch, dev, Cref):
     """The bench headline in eager PyTorch: f32 RODAS4, lane refill."""
     import torch
 
@@ -300,15 +462,8 @@ def phase3(g, batch, dev):
         f"{int(steps.max())}")
     if n_failed:
         raise RuntimeError(f"{n_failed} members failed")
-    p64 = g.Params.unpack(torch.as_tensor(batch[:1], dtype=torch.float64,
-                                          device=dev))
-    ref = g.solve_stiff_batch(system, g.default_co(device=dev), p64,
-                              device=dev, method="rodas4", dr=CFG["dr"],
-                              tf=CFG["tf"], Nts=CFG["Nts"], rtol=1e-8,
-                              atol=1e-11)
-    Cref = ref.C[0, -1]
-    relerr = float(((out[0].double() - Cref).abs()
-                    / (Cref.abs() + 1e-8)).max())
+    relerr = float(((out[0].double() - Cref[0]).abs()
+                    / (Cref[0].abs() + 1e-8)).max())
     log(f"  member 0 vs f64 RODAS4 at rtol 1e-8: max rel err {relerr:.3e}")
     if not relerr <= 1e-3:
         raise RuntimeError("the refill headline is off the f64 reference")
@@ -374,14 +529,14 @@ def phase4(g, batch, dev, erows):
                            maxiters=4))
     before = explicit_cuda.LAUNCHES
     plain_ms = cuda_ms(lambda: explicit_cuda.solve_explicit_plain(
-        g.base_system(), Co, pb, device=dev, **kw), reps=3, warmup=0)
+        g.base_system(), Co, pb, device=dev, **kw), reps=1, warmup=0)
     # the kernel at the same shape, so the two times compare like for like
     small_ms = cuda_ms(lambda: explicit_cuda.solve_explicit_fused(
         g.base_system(), Co, pb, device=dev, **kw), reps=5, warmup=1)
     explicit_cuda.LAUNCHES = before
     nt = torch.ceil(0.25 / stability_dt(pb, CFG["dr"]))
     log(f"  base B={CHUNK} tf=0.25 ({int(nt.min())}-{int(nt.max())} steps): "
-        f"plain version {plain_ms:.1f} ms (median of 3), kernel "
+        f"plain version {plain_ms:.1f} ms (one run), kernel "
         f"{small_ms:.3f} ms (median of 5)")
     erows.update(max_err=max(r[0] for r in results),
                  max_abs_err=max(r[1] for r in results),
@@ -389,7 +544,7 @@ def phase4(g, batch, dev, erows):
                  plain_shape=f"B={CHUNK}, tf=0.25, {int(nt.max())} steps")
 
 
-def phase5(g, batch, dev, erows):
+def phase5(g, batch, dev, erows, Cref):
     """The explicit path at full width through the kernel."""
     import torch
     from gab1_shp2_tpu_torch.models.params import stability_dt
@@ -424,14 +579,7 @@ def phase5(g, batch, dev, erows):
         raise RuntimeError(f"unexpected output shapes {tuple(C.shape)}, "
                            f"{tuple(m.shape)}")
 
-    # members 0-3 against tight f64 RODAS4 solves of the same PDE
-    p64 = g.Params.unpack(torch.as_tensor(batch[:4], dtype=torch.float64,
-                                          device=dev))
-    ref = g.solve_stiff_batch(system, g.default_co(device=dev), p64,
-                              device=dev, method="rodas4", dr=CFG["dr"],
-                              tf=CFG["tf"], Nts=CFG["Nts"], rtol=1e-8,
-                              atol=1e-11)
-    Cref = ref.C[:, -1]
+    # members 0-3 against tight f64 RODAS4 solves of the same PDE:
     # |dC| <= rtol * (|C| + 0.2): the explicit scheme's O(dt) error and
     # the 4-iteration fixed point against an adaptive solve at rtol 1e-8
     dev_rel = float(((C[:4].double() - Cref).abs()
@@ -584,15 +732,16 @@ def main():
         if info is not None:
             log(f"  nvcc build of {lib}.cu: {info['seconds']:.1f} s")
             for line in info["log"].splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     log(f"  ptxas: {line.strip()}")
     log(f"phase 0 wall {time.perf_counter() - t:.1f} s")
 
     batch = bench_ensemble(g)
     rows = {}
     t = time.perf_counter()
-    log("phase 1: fused Rosenbrock23 kernel vs ros23_step_plain, B=256, "
-        "dr=0.2, f32")
+    log("phase 1: fused Rosenbrock23 kernel vs ros23_step_plain, f32: "
+        "B=256 at dr=0.2, B=64 at dr=0.1 and dr=0.05")
     phase1(g, batch, dev, rows)
     log(f"phase 1 wall {time.perf_counter() - t:.1f} s")
 
@@ -603,7 +752,8 @@ def main():
 
     t = time.perf_counter()
     log("phase 3: f32 rodas4 lane-refill headline (eager), N=1024")
-    sps3 = phase3(g, batch, dev)
+    Cref = f64_reference(g, batch, dev)
+    sps3 = phase3(g, batch, dev, Cref)
     log(f"phase 3 wall {time.perf_counter() - t:.1f} s")
 
     erows = {}
@@ -616,7 +766,7 @@ def main():
     t = time.perf_counter()
     log("phase 5: the explicit path through the kernel, N=1024, dr=0.2, "
         "tf=5")
-    sps5 = phase5(g, batch, dev, erows)
+    sps5 = phase5(g, batch, dev, erows, Cref)
     log(f"phase 5 wall {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -633,7 +783,16 @@ def main():
         launches=rows["launches"], max_abs_err=rows["max_abs_err"],
         max_err=rows["max_err"], f1_direct_err=rows["f1_direct_err"],
         est_scaled_err=rows["est_scaled_err"],
-        ms=rows["ms"], ms_x4_lanes=rows["ms_x4_lanes"],
+        ms=rows["ms"], ms_one_call=rows["ms_one_call"],
+        ms_x4_lanes=rows["ms_x4_lanes"], ms_1_lane=rows["ms_1_lane"],
+        ms_132_lanes=rows["ms_132_lanes"], ms_264_lanes=rows["ms_264_lanes"],
+        parts_ms=rows["parts_ms"], blocks_per_sm=rows["blocks_per_sm"],
+        arena_bytes=rows["arena_bytes"],
+        ms_128_threads=rows["ms_128_threads"],
+        ms_global_arena=rows["ms_global_arena"],
+        ms_nb100_b64=rows["ms_nb100_b64"],
+        ms_nb100_b64_global_arena=rows["ms_nb100_b64_global_arena"],
+        ms_nb200_b64=rows["ms_nb200_b64"],
         plain_ms=rows["plain_ms"], bound_ms=rows["bound_ms"],
         bound_by=rows["bound_by"], library_ms=None), dict(
         name="solve_explicit_fused", route="cuda",

@@ -1,11 +1,11 @@
 """Fused Rosenbrock23 step: the hand-written CUDA kernel and its plain twin.
 
 Counterpart of ``gab1_shp2_tpu/ops/ros23_pallas.py``.  One launch of
-``csrc/ros23_step.cu`` performs a whole Rosenbrock23 step for every lane:
-Jacobian bands from the state, the factor of W = I - d*h*J by block
-cyclic reduction, three stage solves and two right-hand-side
-evaluations.  It returns ``(y_1, f(y_1), est)``, the same triple as the
-unfused eager branch of ``batch_stiff._SolverCtx.step``.
+``csrc/ros23_step.cu`` performs a whole Rosenbrock23 step for every lane
+(one thread block per lane): Jacobian bands from the state, the factor of
+W = I - d*h*J by block cyclic reduction, three stage solves and two
+right-hand-side evaluations.  It returns ``(y_1, f(y_1), est)``, the same
+triple as the unfused eager branch of ``batch_stiff._SolverCtx.step``.
 
 * :func:`ros23_step_fused` is the wrapper.  On a CPU tensor it runs
   :func:`ros23_step_plain`; on a CUDA tensor it launches the kernel or
@@ -16,11 +16,20 @@ unfused eager branch of ``batch_stiff._SolverCtx.step``.
 * ``rates_header`` (``ops/rates_codegen.py``, re-exported here)
   generates the kernel's rate functions from the system's reaction
   tables (``models/system.py``) at build time.
+* :func:`arena_bytes` and :func:`arena_in_shared` give the size of the
+  kernel's per-lane working storage and where it lies (shared memory, or
+  a global scratch tensor that the wrapper allocates), by the formula of
+  the source's header note.
+* :func:`ros23_step_probe` and :func:`blocks_per_sm` are for
+  measurements (``chip_smoke.py``): the same kernel with another block
+  size, stopped after a part, or with its arena forced into global
+  memory; and the occupancy calculator's answer.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,11 +53,41 @@ from gab1_shp2_tpu_torch.ops.trbdf2 import _ROS_D, _ROS_E32
 LAUNCHES = 0
 
 
+# the 227 KB of shared memory a block may ask for on Hopper, less 256 B
+# for the kernel's static part (SHARED_ARENA_MAX in csrc/ros23_step.cu)
+SHARED_ARENA_MAX = 232448 - 256
+
+
 def _next_pow2(n: int) -> int:
     m = 1
     while m < n:
         m *= 2
     return m
+
+
+def arena_bytes(NB: int) -> int:
+    """Bytes of one lane's arena in the kernel for ``NB`` block rows.
+
+    Level l of the cyclic reduction has n_l rows (n_0 = NB, n_{l+1} =
+    ceil(n_l / 2), down to 1).  The arena holds NB diagonal blocks,
+    level 0's LDinv and UDinv (n_1 blocks each), the two dense boundary
+    blocks, n_l blocks of L and of U for every level between the first
+    and the root, level 0's L and U as two 10-vectors per row, 7 vectors
+    of NB*10 and the right-hand sides of every level.
+    """
+    n = [int(NB)]
+    while n[-1] > 1:
+        n.append((n[-1] + 1) // 2)
+    blocks = NB + 2 * n[1] + 2 + 2 * sum(n[1:-1])
+    floats = BLK * BLK * blocks + (2 + 7) * BLK * NB + BLK * sum(n)
+    return 4 * floats
+
+
+def arena_in_shared(NB: int) -> bool:
+    """Whether the kernel keeps a lane's arena in shared memory; if not,
+    the wrapper allocates one lane-major arena per lane in global memory.
+    The choice depends on the shape alone."""
+    return arena_bytes(NB) <= SHARED_ARENA_MAX
 
 
 # ---------------------------------------------------------------------------
@@ -94,17 +133,27 @@ def ros23_step_plain(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
 _P = ctypes.c_void_p
 
 
+@functools.lru_cache(maxsize=None)
 def _library(system: ReactionDiffusionSystem):
+    # cached per system: generating and hashing the sources on every step
+    # would cost more host time than the kernel takes on the card
     lib = _build.load_library(
         "ros23_step", ["ros23_step.cu"],
         {"ros23_rates.cuh": rates_header(system)})
-    lib.ros23_step_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, _P]
+    step = [_P] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_float]
+    lib.ros23_step_launch.argtypes = step + [_P]
     lib.ros23_step_launch.restype = ctypes.c_int
-    lib.ros23_scratch_per_lane.argtypes = [ctypes.c_int]
-    lib.ros23_scratch_per_lane.restype = ctypes.c_longlong
+    # the same kernel with a block size and a part to stop after, for
+    # measurements
+    lib.ros23_step_probe.argtypes = step + [ctypes.c_int, ctypes.c_int, _P]
+    lib.ros23_step_probe.restype = ctypes.c_int
+    lib.ros23_arena_bytes.argtypes = [ctypes.c_int]
+    lib.ros23_arena_bytes.restype = ctypes.c_longlong
+    lib.ros23_arena_in_shared.argtypes = [ctypes.c_int]
+    lib.ros23_arena_in_shared.restype = ctypes.c_int
+    lib.ros23_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.ros23_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -123,6 +172,50 @@ def _check(name, t, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(system, y, f_n, h, k_batch, d_eff, dr, *, threads=None,
+            stop_after=None, global_arena=None):
+    """Check the CUDA tensors, allocate outputs (and the global arenas
+    where the shape needs them) and launch the kernel on the current
+    stream; raises if the card refuses the launch.  ``threads`` selects
+    the measuring entry of the library (see :func:`ros23_step_probe`)."""
+    NB, _, B = y.shape
+    dev = y.device
+    _check("y", y, (NB, BLK, B), dev)
+    _check("f_n", f_n, (NB, BLK, B), dev)
+    _check("h", h, (B,), dev)
+    _check("k_batch", k_batch, (B, len(K_NAMES)), dev)
+    _check("d_eff", d_eff, (B, N_CYTO), dev)
+
+    lib = _library(system)
+    nbytes = lib.ros23_arena_bytes(NB)
+    if nbytes != arena_bytes(NB):
+        raise RuntimeError(f"the kernel library lays out {nbytes} B per "
+                           f"lane for NB={NB}, arena_bytes gives "
+                           f"{arena_bytes(NB)}")
+    if global_arena is None:
+        global_arena = not arena_in_shared(NB)
+    scratch = None
+    if global_arena:
+        scratch = torch.empty(nbytes // 4 * B, dtype=torch.float32,
+                              device=dev)
+    y1, f1, est = (torch.empty_like(y) for _ in range(3))
+    args = [y.data_ptr(), f_n.data_ptr(), h.data_ptr(), k_batch.data_ptr(),
+            d_eff.data_ptr(), y1.data_ptr(), f1.data_ptr(), est.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), NB, B,
+            float(dr), int(system.geometry is Geometry.SPHERICAL),
+            float(_ROS_D), float(_ROS_E32)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if threads is None:
+        err = lib.ros23_step_launch(*args, stream)
+    else:
+        err = lib.ros23_step_probe(*args, int(threads), int(stop_after),
+                                   stream)
+    if err != 0:
+        raise RuntimeError(f"ros23_step kernel launch failed: CUDA error "
+                           f"{err}")
+    return y1, f1, est
 
 
 def ros23_step_fused(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
@@ -145,30 +238,35 @@ def ros23_step_fused(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
     if blk != BLK or NB != int(Nr) or NB < 2:
         raise ValueError(f"y has shape {tuple(y.shape)}; expected "
                          f"({int(Nr)}, {BLK}, B) for Nr={Nr}")
-    dev = y.device
-    _check("y", y, (NB, BLK, B), dev)
-    _check("f_n", f_n, (NB, BLK, B), dev)
-    _check("h", h, (B,), dev)
-    _check("k_batch", k_batch, (B, len(K_NAMES)), dev)
-    _check("d_eff", d_eff, (B, N_CYTO), dev)
-
-    lib = _library(system)
-    NBp = _next_pow2(NB)
-    scratch = torch.empty(lib.ros23_scratch_per_lane(NBp) * B,
-                          dtype=torch.float32, device=dev)
-    y1, f1, est = (torch.empty_like(y) for _ in range(3))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ros23_step_launch(
-        y.data_ptr(), f_n.data_ptr(), h.data_ptr(), k_batch.data_ptr(),
-        d_eff.data_ptr(), y1.data_ptr(), f1.data_ptr(), est.data_ptr(),
-        scratch.data_ptr(), NB, NBp, B, float(dr),
-        int(system.geometry is Geometry.SPHERICAL), float(_ROS_D),
-        float(_ROS_E32), stream)
-    if err != 0:
-        raise RuntimeError(f"ros23_step kernel launch failed: CUDA error "
-                           f"{err}")
+    out = _launch(system, y, f_n, h, k_batch, d_eff, dr)
     LAUNCHES += 1
-    return y1, f1, est
+    return out
+
+
+def ros23_step_probe(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
+                     d_eff, dr: float, *, threads: int = 256,
+                     stop_after: int = 3, global_arena=None):
+    """The same kernel for measurements on CUDA tensors: ``threads`` per
+    block (a multiple of 32 up to 256); the kernel returns after part
+    ``stop_after`` (1: the bands, 2: the factor, 3: the whole step) and
+    leaves the outputs unwritten unless it is 3; ``global_arena=True``
+    puts the arenas in global memory whatever the shape.  The solver
+    never calls this, and it does not count in ``LAUNCHES``."""
+    return _launch(system, y, f_n, h, k_batch, d_eff, dr, threads=threads,
+                   stop_after=stop_after, global_arena=global_arena)
+
+
+def blocks_per_sm(system: ReactionDiffusionSystem, NB: int,
+                  threads: int = 256, global_arena=None) -> int:
+    """Resident blocks per SM that the card's occupancy calculator gives
+    the kernel for ``NB`` block rows."""
+    if global_arena is None:
+        global_arena = not arena_in_shared(NB)
+    n = _library(system).ros23_blocks_per_sm(int(NB), int(threads),
+                                             int(global_arena))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def step_flops(NB: int) -> int:

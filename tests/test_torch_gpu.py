@@ -35,6 +35,11 @@ pytestmark = pytest.mark.gpu
 
 R, DR = 10.0, 0.5
 NR = int(round(R / DR))
+# grids of the step kernel: NB = 20, 50 and 100 block rows keep a lane's
+# arena in shared memory (3, 2 and 1 blocks an SM), NB = 200 puts it in
+# global memory; NB = 9 is an odd row count
+STEP_GRIDS = {"NB20": 0.5, "NB100": 0.1, "NB200-global-arena": 0.05,
+              "NB9": 10.0 / 9.0}
 
 
 @pytest.fixture
@@ -44,27 +49,33 @@ def cuda():
     return torch.device("cuda")
 
 
-def _step_args(system, dev, B, seed=0):
+def _step_args(system, dev, B, seed=0, dr=DR):
+    nr = int(round(R / dr))
     rng = np.random.default_rng(seed)
     p0 = tg.default_params(device="cpu").pack().numpy()
     P = p0[None] * np.exp(rng.normal(0, 0.2, (B, 24)))
     p = tg.Params.unpack(torch.as_tensor(P, dtype=torch.float32, device=dev))
-    y = torch.as_tensor(rng.uniform(0.1, 5.0, (NR, 10, B)),
+    y = torch.as_tensor(rng.uniform(0.1, 5.0, (nr, 10, B)),
                         dtype=torch.float32, device=dev)
     y[-1, 8:] = 0.0
-    rhs, _ = make_mol_rhs_lanes(system, R, DR)
+    rhs, _ = make_mol_rhs_lanes(system, R, dr)
     f_n = rhs(y, p).contiguous()
     h = torch.as_tensor(np.logspace(-3, -1, B), dtype=torch.float32,
                         device=dev)
     d_eff = effective_diffusivities(system, p).contiguous()
-    return (system, y, f_n, h, p.k.contiguous(), d_eff, NR, DR), rhs, p
+    return (system, y, f_n, h, p.k.contiguous(), d_eff, nr, dr), rhs, p
 
 
+@pytest.mark.parametrize("grid,B", [("NB20", 1), ("NB20", 37), ("NB20", 300),
+                                    ("NB100", 37), ("NB200-global-arena", 16),
+                                    ("NB9", 5)])
 @pytest.mark.parametrize("variant", ["base_system", "rect_system",
                                      "memb_sfk_system"])
-def test_kernel_matches_plain(cuda, variant):
+def test_kernel_matches_plain(cuda, variant, grid, B):
     system = getattr(tg, variant)()
-    args, rhs, p = _step_args(system, cuda, B=37)  # a ragged last warp
+    dr = STEP_GRIDS[grid]
+    args, rhs, p = _step_args(system, cuda, B=B, dr=dr)
+    assert ros23_cuda.arena_in_shared(args[6]) is ("global" not in grid)
     before = ros23_cuda.LAUNCHES
     yk, fk, ek = ros23_cuda.ros23_step_fused(*args)
     assert ros23_cuda.LAUNCHES == before + 1
@@ -75,7 +86,7 @@ def test_kernel_matches_plain(cuda, variant):
     assert float((yk - yp).norm() / yp.norm()) <= 1e-4
     f_at_yk = rhs(yk, p)
     assert float((fk - f_at_yk).norm() / f_at_yk.norm()) <= 1e-4
-    ctx = _SolverCtx(system, R, DR, 2, 1e-4, 1e-7, 1.0, torch.float32, cuda,
+    ctx = _SolverCtx(system, R, dr, 2, 1e-4, 1e-7, 1.0, torch.float32, cuda,
                      None, "rosenbrock23", "torch")
     # est: the per-lane error norms agree to 1e-2 of max(1, norm), so the
     # accept/reject decision moves only within 1% of its threshold (on
@@ -84,6 +95,43 @@ def test_kernel_matches_plain(cuda, variant):
     diff = ctx.scaled_norm(ek - ep, args[1], yp)
     assert bool((diff <= 1e-2 * torch.clamp(errn_p, min=1.0)).all()), (
         diff, errn_p)
+
+
+@pytest.mark.parametrize("grid", ["NB20", "NB200-global-arena"])
+def test_kernel_is_deterministic(cuda, grid):
+    """Two launches on the same inputs give the same bits (the kernel has
+    no atomics), and so do 128 threads a block and, where the arena lies in
+    shared memory, the same arena in global memory: the arithmetic does not
+    depend on where the arena lies or on how the work is dealt to warps."""
+    args, _, _ = _step_args(tg.base_system(), cuda, B=37,
+                            dr=STEP_GRIDS[grid])
+    first = ros23_cuda.ros23_step_fused(*args)
+    second = ros23_cuda.ros23_step_fused(*args)
+    system, y, f_n, h, k, d_eff, _, dr = args
+    before = ros23_cuda.LAUNCHES
+    narrow = ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff, dr,
+                                         threads=128)
+    in_global = ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff, dr,
+                                            global_arena=True)
+    torch.cuda.synchronize()
+    assert ros23_cuda.LAUNCHES == before
+    for other in (second, narrow, in_global):
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+
+
+def test_arena_layout_agrees_with_the_library(cuda):
+    """``arena_bytes``/``arena_in_shared`` mirror the library's layout, and
+    the occupancy calculator gives the blocks per SM of the header note."""
+    system = tg.base_system()
+    lib = ros23_cuda._library(system)
+    for nb in (2, 3, 9, 20, 50, 100, 112, 113, 200, 1000):
+        assert lib.ros23_arena_bytes(nb) == ros23_cuda.arena_bytes(nb)
+        assert bool(lib.ros23_arena_in_shared(nb)) is (
+            ros23_cuda.arena_in_shared(nb))
+    assert ros23_cuda.blocks_per_sm(system, 50) == 2
+    assert ros23_cuda.blocks_per_sm(system, 100) == 1
+    assert ros23_cuda.blocks_per_sm(system, 200) >= 1
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -104,6 +152,11 @@ def test_wrapper_rejects_bad_inputs(cuda):
     a[6] = NR + 1
     with pytest.raises(ValueError, match="expected"):
         ros23_cuda.ros23_step_fused(*a)
+    # a launch that is refused raises (257 threads a block)
+    system, y, f_n, h, k, d_eff, _, dr = args
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff, dr,
+                                    threads=257)
 
 
 def test_fused_solve_matches_unfused_on_card(cuda):
