@@ -58,13 +58,6 @@ LAUNCHES = 0
 SHARED_ARENA_MAX = 232448 - 256
 
 
-def _next_pow2(n: int) -> int:
-    m = 1
-    while m < n:
-        m *= 2
-    return m
-
-
 def arena_bytes(NB: int) -> int:
     """Bytes of one lane's arena in the kernel for ``NB`` block rows.
 
@@ -162,6 +155,19 @@ def build(system: ReactionDiffusionSystem) -> None:
     _library(system)
 
 
+@functools.lru_cache(maxsize=None)
+def _checked_arena(system: ReactionDiffusionSystem, NB: int):
+    """The library and the bytes of one lane's arena, once per shape: the
+    library's layout must be the one :func:`arena_bytes` mirrors."""
+    lib = _library(system)
+    nbytes = lib.ros23_arena_bytes(NB)
+    if nbytes != arena_bytes(NB):
+        raise RuntimeError(f"the kernel library lays out {nbytes} B per "
+                           f"lane for NB={NB}, arena_bytes gives "
+                           f"{arena_bytes(NB)}")
+    return lib, nbytes
+
+
 def _check(name, t, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -188,12 +194,7 @@ def _launch(system, y, f_n, h, k_batch, d_eff, dr, *, threads=None,
     _check("k_batch", k_batch, (B, len(K_NAMES)), dev)
     _check("d_eff", d_eff, (B, N_CYTO), dev)
 
-    lib = _library(system)
-    nbytes = lib.ros23_arena_bytes(NB)
-    if nbytes != arena_bytes(NB):
-        raise RuntimeError(f"the kernel library lays out {nbytes} B per "
-                           f"lane for NB={NB}, arena_bytes gives "
-                           f"{arena_bytes(NB)}")
+    lib, nbytes = _checked_arena(system, NB)
     if global_arena is None:
         global_arena = not arena_in_shared(NB)
     scratch = None
@@ -270,18 +271,56 @@ def blocks_per_sm(system: ReactionDiffusionSystem, NB: int,
 
 
 def step_flops(NB: int) -> int:
-    """Floating-point operations of the kernel's linear algebra for one
-    lane (the factor of W and three solves, padded to a power of two);
-    the band and right-hand-side terms, O(NB * reactions), are left out,
-    so this is a lower bound of the step's work."""
-    n = BLK
-    inv, mm, mv = 2 * n**3, 2 * n**3, 2 * n**2
-    nb = _next_pow2(NB)
+    """Floating-point operations that the step's linear algebra needs for
+    one lane: the factor of W by block cyclic reduction on its own rows
+    (n_0 = NB, n_{l+1} = ceil(n_l / 2), no padding) and three solves.
+
+    W's level-0 off-diagonal blocks are diagonal apart from the membrane
+    row's L and the last interior row's U, so a product or a matvec with
+    one of them is a scaling (100 or 10 multiplies); every other product
+    costs 2*10^3, a Gauss-Jordan inverse 2*10^3, a matvec 2*10^2.  The
+    subtractions that join the products, and the band and right-hand-side
+    terms, O(NB * reactions), are left out, so this is a lower bound of
+    the step's work.
+    """
+    s = BLK
+    inv, mm, mv = 2 * s**3, 2 * s**3, 2 * s**2
+
+    def off_diag(level, row, n, lower):
+        """Cost class of L (lower) or U of a row: None where it is absent,
+        True where it is dense."""
+        if (row == 0) if lower else (row == n - 1):
+            return None
+        if level > 0:
+            return True
+        return row == (NB - 1 if lower else NB - 2)
+
+    def cost(dense, full, scaled):
+        return 0 if dense is None else (full if dense else scaled)
+
     fac = inv                      # root inverse
     solve = mv                     # root matvec
-    while nb > 1:
-        hh = nb // 2
-        fac += hh * inv + (6 * hh - 3) * mm
-        solve += (2 * hh - 1) * mv + (3 * hh - 1) * mv
-        nb = hh
+    n, level = int(NB), 0
+    while n > 1:
+        nt = (n + 1) // 2
+        for i in range(nt):
+            odd = 2 * i + 1 < n
+            if i > 0:
+                # LDinv_i = L(2i) Dinv, its share of D', and L'
+                fac += cost(off_diag(level, 2 * i, n, True), mm, s * s)
+                fac += cost(off_diag(level, 2 * i - 1, n, False), mm, s * s)
+                fac += cost(off_diag(level, 2 * i - 1, n, True), mm, s * s)
+                solve += mv        # forward: LDinv_i b(2i-1)
+            if odd:
+                # Dinv of the odd row, UDinv_i, its share of D', and U'
+                fac += inv
+                fac += cost(off_diag(level, 2 * i, n, False), mm, s * s)
+                fac += cost(off_diag(level, 2 * i + 1, n, True), mm, s * s)
+                fac += cost(off_diag(level, 2 * i + 1, n, False), mm, s * s)
+                solve += mv        # forward: UDinv_i b(2i+1)
+                # backward: Dinv (b - L x'_i - U x'_{i+1})
+                solve += mv
+                solve += cost(off_diag(level, 2 * i + 1, n, True), mv, s)
+                solve += cost(off_diag(level, 2 * i + 1, n, False), mv, s)
+        n, level = nt, level + 1
     return fac + 3 * solve

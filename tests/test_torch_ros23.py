@@ -102,6 +102,14 @@ def test_rates_header_follows_the_tables():
 
 
 def test_step_flops_count():
-    """CR on NB=50 padded to 64: 64 Gauss-Jordan inverses and 360 block
-    products in the factor, 304 block matvecs per solve."""
-    assert ros23_cuda.step_flops(50) == 64 * 2000 + 360 * 2000 + 3 * 304 * 200
+    """CR on NB=50 on its own rows (50, 25, 13, 7, 4, 2, 1): 50 Gauss-Jordan
+    inverses in the factor, 138 dense block products and 144 scalings by a
+    diagonal level-0 block; per solve 192 dense block matvecs and 48
+    scalings of a 10-vector.  The smallest system has one odd row."""
+    assert ros23_cuda.step_flops(50) == (
+        50 * 2000 + 138 * 2000 + 144 * 100 + 3 * (192 * 200 + 48 * 10))
+    # NB=2: Dinv_1, the root; UDinv = Ulast Dinv_1 and UDinv Lmemb (both
+    # dense); per solve the forward, root and two backward matvecs
+    assert ros23_cuda.step_flops(2) == 2 * 2000 + 2 * 2000 + 3 * 4 * 200
+    # twice the rows need about twice the work, padding or not
+    assert 2.0 < ros23_cuda.step_flops(100) / ros23_cuda.step_flops(50) < 2.1

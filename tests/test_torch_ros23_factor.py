@@ -9,6 +9,11 @@ emulation below follows that scheme slot by slot, so that these tests
 show on the CPU that it is exact algebra: the padded reference differs
 from it only by products with exact zeros and ones.
 
+The emulation is a design record of the layout, not a test of the kernel:
+it never runs the CUDA source, which only the ``gpu`` tests hold.  If the
+kernel's layout changes, rewrite or drop the emulation with it; the tests
+of ``arena_bytes`` and ``arena_in_shared`` at the end stand on their own.
+
 Tolerances, as relative norm error of the solution of W x = b taken in
 float64: 1e-12 in float64 and 1e-5 in float32 (the two sum the same terms;
 einsum and the explicit scalings may round in another order).
