@@ -20,10 +20,9 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      and at B=64 on dr=0.1 (NB=100, shared, one block an SM) and dr=0.05
      (NB=200, the arena in global memory); CUDA-event times of both at
      B=256, of the kernel at B=1, 132, 264 and 1024, of its parts (bands,
-     factor, solves and right-hand sides) and of two variants (128
-     threads a block, the arena in global memory), the kernel's as device
-     times of launches replayed from a CUDA graph; blocks per SM from the
-     occupancy calculator;
+     factor, solves and right-hand sides) and of the arena in global
+     memory, the kernel's as device times of launches replayed from a CUDA
+     graph; blocks per SM from the occupancy calculator;
   2. the main path through the kernel: chunked f32 Rosenbrock23
      (step_impl="fused"), N=1024 in chunks of 256; launch counts are
      reset just before and read just after; chunk 0 is compared with the
@@ -33,13 +32,16 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      f64 RODAS4 solve (members 0-3 at rtol 1e-8, solved once for this
      phase and phase 5);
   4. the fused explicit solve against solve_explicit_plain at B=256,
-     tf=0.25 for base, rect and memb_sfk, and on two finer grids (201
-     and 501 nodes); CUDA-event times of the plain version and of the
-     kernel at that shape;
+     tf=0.25 for base, rect and memb_sfk, at B=37 (an odd count), and on
+     finer grids (101, 201 and 501 nodes: each layout of the kernel);
+     CUDA-event times of the plain version and of the kernel at that
+     shape;
   5. the explicit path at full width through the kernel: N=1024, tf=5,
      about 37,000 steps per member in one launch; the launch count is
      reset just before and read just after; members 0-3 against tight
-     f64 RODAS4 solves; CUDA-event times at N=1024 and N=4096;
+     f64 RODAS4 solves; CUDA-event times at N=1024 and N=4096; the
+     serial-chain floor beside the bound; registers and blocks per SM of
+     each layout;
   6. the engine and the GSA runner: eager run_ensemble(solver="explicit")
      against the kernel, run_ensemble(solver="stiff") with the 6 GSA
      outputs and masked_quantiles, and a 325-solve eFAST sweep over the
@@ -71,10 +73,51 @@ PEAK_HBM_BPS = 3.35e12   # H100 SXM HBM3
 # fused f32 explicit solve against f64 RODAS4 at rtol 1e-8, as
 # max |dC| / (|C| + 0.2) over members 0-3 (3.8e-4 on an NVIDIA H100; phase 5)
 EXPLICIT_VS_STIFF = 1e-3
+# cycles a dependent f32 operation takes at least on the card (the FMA
+# pipeline's latency on Hopper)
+CYCLES_PER_CHAIN_OP = 4
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def chain_ops(system, maxiters):
+    """Floating-point operations on the longest dependency path of one
+    member-step of csrc/explicit_solve.cu, a fused multiply-add counted as
+    one: what no kernel can run in parallel, since a member's steps run in
+    order.  Shuffles and selects, which move values between lanes, count
+    zero.  A model of the kernel's code, counted by hand from it.
+
+    Per fixed-point iteration, from the membrane iterate to the next one:
+    the binding's loss ``kf*m``, ``1 + l*q``, the quotient (reciprocal,
+    product and the two operations of its correction), ``kf*CR`` and the
+    net, the membrane rate's accumulations (the most terms one membrane
+    species takes) and the update.  The first iteration waits instead for
+    C_near, node Nr-1's update from the last step's CR (the second
+    difference and its scale, 3; the metric term when spherical, 1; ``d*lap
+    + rates`` and ``C + dt*...``, 2), then ``cn + g*q`` and the product:
+    the loss and the reciprocal run beside the node update.  The last
+    iteration's boundary values (Etot, iSFK's quotient, aSFK) run beside its
+    chain and are no longer.
+    """
+    terms = {}
+    for sb in system.surface_bindings:
+        for name in (sb.memb, sb.product):
+            terms[name] = terms.get(name, 0) + 1
+    tail = 2 + 2 + max(terms.values()) + 1        # correction, net, dm, mm
+    per_iter = 1 + 1 + 2 + tail                   # loss, 1 + l q, rcp, product
+    node = 3 + (system.geometry.name == "SPHERICAL") + 2
+    first = node + 1 + 1 + tail                   # C_near, cn + g q, product
+    return first + (int(maxiters) - 1) * per_iter
+
+
+def chain_floor_ms(system, steps, maxiters, sm_clock_khz):
+    """The serial-chain floor of a launch whose longest member takes
+    ``steps`` steps: ``steps * chain_ops * CYCLES_PER_CHAIN_OP`` cycles at
+    ``sm_clock_khz``."""
+    cycles = int(steps) * chain_ops(system, maxiters) * CYCLES_PER_CHAIN_OP
+    return cycles / float(sm_clock_khz)
 
 
 def card_line():
@@ -318,7 +361,6 @@ def phase1(g, batch, dev, rows):
         log(f"  NB={nb}: arena {occ[nb]['arena_bytes']} B per lane in "
             f"{occ[nb]['arena']} memory, {occ[nb]['blocks_per_sm']} blocks "
             f"of 256 threads per SM (occupancy calculator)")
-    occ128 = ros23_cuda.blocks_per_sm(system, Nr, threads=128)
 
     # the kernel's parts: the same kernel stopped after the bands and
     # after the factor, timed in turns with the whole step
@@ -335,14 +377,11 @@ def phase1(g, batch, dev, rows):
         f"through the factor {t_factor:.4f}, whole step {t_all:.4f} ms): "
         f"bands {parts['bands']:.4f}, factor {parts['factor']:.4f}, three "
         f"solves + two RHS + stores {parts['solves_rhs']:.4f} ms")
-    # variants, in turns within this call: 128 threads a block; the arena
-    # in global memory at the bench shape
-    t128 = graph_ms(probe(threads=128))
-    t256 = graph_ms(probe(threads=256))
+    # the arena in global memory at the bench shape, in turns with the
+    # shared one
     tglob = graph_ms(probe(global_arena=True))
-    log(f"  variants at B={B} (graph replays): 128 threads {t128:.4f} ms "
-        f"({occ128} blocks per SM), 256 threads {t256:.4f} ms, 256 threads "
-        f"with the arena in global memory {tglob:.4f} ms")
+    log(f"  arena in global memory at B={B} (graph replays): {tglob:.4f} ms "
+        f"(in shared memory: {t_all:.4f} ms)")
     # the first finer grid: shared arena (as the wrapper chooses) against
     # global; the second through the wrapper
     fsys, fy, ff, fh, fk, fd, fnb, fdr = fine[0]
@@ -375,8 +414,8 @@ def phase1(g, batch, dev, rows):
                 ms_1_lane=by_lanes[1], ms_132_lanes=by_lanes[132],
                 ms_264_lanes=by_lanes[264], parts_ms=parts,
                 blocks_per_sm=occ[Nr]["blocks_per_sm"],
-                arena_bytes=occ[Nr]["arena_bytes"], ms_128_threads=t128,
-                ms_global_arena=tglob, ms_nb100_b64=f_sh,
+                arena_bytes=occ[Nr]["arena_bytes"], ms_global_arena=tglob,
+                ms_nb100_b64=f_sh,
                 ms_nb100_b64_global_arena=f_gl, ms_nb200_b64=f200,
                 eager_rhs_ms=layer_ms["rhs"])
     rows["max_abs_err"] = max(r["abs_y"] for r in result)
@@ -508,11 +547,18 @@ def phase4(g, batch, dev, erows):
                                                device=dev))
 
     def compare(label, system, pb, **kw):
+        """Errors of the kernel against the plain version, and the plain
+        version's CUDA-event time in ms (one run)."""
         Ck, mk = explicit_cuda.solve_explicit_fused(system, Co, pb,
                                                     device=dev, **kw)
-        Cp, mp = explicit_cuda.solve_explicit_plain(system, Co, pb,
-                                                    device=dev, **kw)
-        torch.cuda.synchronize()
+        out = {}
+
+        def plain():
+            out["Cm"] = explicit_cuda.solve_explicit_plain(
+                system, Co, pb, device=dev, **kw)
+
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        Cp, mp = out["Cm"]
         if not (torch.isfinite(Ck).all() and torch.isfinite(mk).all()):
             raise RuntimeError(f"{label}: the kernel returned non-finite "
                                "values")
@@ -528,7 +574,7 @@ def phase4(g, batch, dev, erows):
         if not (err_C <= 1e-4 and err_m <= 1e-4):
             raise RuntimeError(f"{label}: kernel disagrees with "
                                "solve_explicit_plain")
-        return max(err_C, err_m), max(abs_C, abs_m)
+        return max(err_C, err_m), max(abs_C, abs_m), plain_ms
 
     kw = dict(dr=CFG["dr"], tf=0.25, maxiters=4)
     pb = members(CHUNK)
@@ -536,8 +582,14 @@ def phase4(g, batch, dev, erows):
                for name, system in (("base", g.base_system()),
                                     ("rect", g.rect_system()),
                                     ("memb_sfk", g.memb_sfk_system()))]
-    # finer grids than the TPU kernel's 128 nodes: 201 nodes (the
-    # 256-thread instantiation) and 501 nodes (the 1024-thread one)
+    # an odd ensemble
+    results.append(compare("base B=37 tf=0.05", g.base_system(), members(37),
+                           dr=0.2, tf=0.05, maxiters=4))
+    # finer grids, one for each other layout: 101 nodes (a warp per member,
+    # 4 nodes a lane), 201 and 501 (blocks of 2 and 4 warps per member)
+    results.append(compare("base B=32 dr=0.1 (101 nodes) tf=0.01",
+                           g.base_system(), members(32), dr=0.1, tf=0.01,
+                           maxiters=4))
     results.append(compare("base B=32 dr=0.05 (201 nodes) tf=0.01",
                            g.base_system(), members(32), dr=0.05, tf=0.01,
                            maxiters=4))
@@ -545,9 +597,9 @@ def phase4(g, batch, dev, erows):
                            g.base_system(), members(4), dr=0.02, tf=0.0005,
                            maxiters=4))
     before = explicit_cuda.LAUNCHES
-    plain_ms = cuda_ms(lambda: explicit_cuda.solve_explicit_plain(
-        g.base_system(), Co, pb, device=dev, **kw), reps=1, warmup=0)
-    # the kernel at the same shape, so the two times compare like for like
+    plain_ms = results[0][2]
+    # the kernel at the shape the plain version was timed at (base, the
+    # first comparison), so the two times compare like for like
     small_ms = cuda_ms(lambda: explicit_cuda.solve_explicit_fused(
         g.base_system(), Co, pb, device=dev, **kw), reps=5, warmup=1)
     explicit_cuda.LAUNCHES = before
@@ -620,11 +672,37 @@ def phase5(g, batch, dev, erows, Cref):
         f"{N / ms * 1e3:.1f} solves/s; bound {max(t_ops, t_bytes) * 1e3:.4f}"
         f" ms ({flops / 1e12:.4f} TFLOP = {t_ops * 1e3:.4f} ms, "
         f"{nbytes / 1e6:.3f} MB = {t_bytes * 1e3:.5f} ms)")
-    log(f"  N={4 * N}: kernel {ms4:.3f} ms per launch (median of 3)")
+    log(f"  N={4 * N}: kernel {ms4:.3f} ms per launch (median of 3) = "
+        f"{ms4 / ms:.2f} x N={N}")
+    # the serial-chain floor, a model logged beside the measured times:
+    # the longest member's steps, each at least chain_ops dependent
+    # operations of 4 cycles at the card's maximum SM clock (the clock under
+    # load may be lower, which raises the floor)
+    plan = explicit_cuda.launch_plan(Nr)
+    info = {}
+    for nr in (Nr, 100, 200):
+        p_nr = explicit_cuda.launch_plan(nr)
+        info[p_nr.layout] = explicit_cuda.kernel_info(system, p_nr)
+        log(f"  {nr + 1} nodes: {p_nr.layout}, {p_nr.threads} threads a "
+            f"block: {info[p_nr.layout]}")
+    khz = info[plan.layout]["sm_clock_khz"]
+    floor = chain_floor_ms(system, int(nt.max()), 4, khz)
+    log(f"  serial-chain floor {floor:.4f} ms: {int(nt.max())} steps x "
+        f"{chain_ops(system, 4)} dependent operations x "
+        f"{CYCLES_PER_CHAIN_OP} cycles at {khz / 1e6:.3f} GHz (maximum) "
+        f"(the kernel is {ms / floor:.1f} x above it, "
+        f"{ms / (max(t_ops, t_bytes) * 1e3):.1f} x above the bound)")
     erows.update(launches=launches, ms=ms, ms_x4_members=ms4,
                  bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 vs_f64_stiff=dev_rel)
+                 vs_f64_stiff=dev_rel,
+                 layout=plan.layout,
+                 blocks_per_sm=info[plan.layout]["blocks_per_sm"],
+                 registers=info[plan.layout]["registers"],
+                 layouts={k: dict(registers=v["registers"],
+                                  local_bytes=v["local_bytes"],
+                                  blocks_per_sm=v["blocks_per_sm"])
+                          for k, v in info.items()})
     return N / wall
 
 
@@ -804,8 +882,8 @@ def main():
         ms_x4_lanes=rows["ms_x4_lanes"], ms_1_lane=rows["ms_1_lane"],
         ms_132_lanes=rows["ms_132_lanes"], ms_264_lanes=rows["ms_264_lanes"],
         parts_ms=rows["parts_ms"], blocks_per_sm=rows["blocks_per_sm"],
+        layout="a block of 256 threads per lane, the arena in shared memory",
         arena_bytes=rows["arena_bytes"],
-        ms_128_threads=rows["ms_128_threads"],
         ms_global_arena=rows["ms_global_arena"],
         ms_nb100_b64=rows["ms_nb100_b64"],
         ms_nb100_b64_global_arena=rows["ms_nb100_b64_global_arena"],
@@ -822,7 +900,9 @@ def main():
         plain_ms=erows["plain_ms"], plain_shape=erows["plain_shape"],
         ms_at_plain_shape=erows["ms_at_plain_shape"],
         bound_ms=erows["bound_ms"], bound_by=erows["bound_by"],
-        library_ms=None)]
+        layout=erows["layout"],
+        blocks_per_sm=erows["blocks_per_sm"], registers=erows["registers"],
+        layouts=erows["layouts"], library_ms=None)]
     log(f"solves/s (first readings, not a benchmark): chunked fused "
         f"rosenbrock23 {sps2:.2f}, refill rodas4 {sps3:.2f}, fused "
         f"explicit {sps5:.2f}")

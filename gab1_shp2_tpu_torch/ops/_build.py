@@ -3,8 +3,9 @@
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 object with a plain C interface (no PyTorch headers, so a build takes
 seconds), cached under ``gab1_shp2_tpu_torch/_build/`` by a hash of its
-sources, generated headers and flags, and loaded with ``ctypes``.  The
-caller declares ``argtypes``/``restype`` on the returned library.
+sources, the shared headers under ``csrc/``, its generated headers and
+flags, and loaded with ``ctypes``.  The caller declares
+``argtypes``/``restype`` on the returned library.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def load_library(name: str, sources: Sequence[str],
         raise RuntimeError("the CUDA kernels need a CUDA device, and "
                            "torch.cuda.is_available() is False")
     h = hashlib.sha256()
-    for src in sources:
+    # the sources and every shared header under csrc/ they may include
+    for src in [*sources, *sorted(p.name for p in CSRC_DIR.glob("*.cuh"))]:
         h.update(src.encode())
         h.update((CSRC_DIR / src).read_bytes())
     for fname in sorted(generated):

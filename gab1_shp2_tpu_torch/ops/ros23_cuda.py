@@ -21,9 +21,9 @@ triple as the unfused eager branch of ``batch_stiff._SolverCtx.step``.
   a global scratch tensor that the wrapper allocates), by the formula of
   the source's header note.
 * :func:`ros23_step_probe` and :func:`blocks_per_sm` are for
-  measurements (``chip_smoke.py``): the same kernel with another block
-  size, stopped after a part, or with its arena forced into global
-  memory; and the occupancy calculator's answer.
+  measurements (``chip_smoke.py``): the same kernel stopped after a part,
+  or with its arena forced into global memory; and the occupancy
+  calculator's answer.
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def arena_bytes(NB: int) -> int:
     n = [int(NB)]
     while n[-1] > 1:
         n.append((n[-1] + 1) // 2)
-    blocks = NB + 2 * n[1] + 2 + 2 * sum(n[1:-1])
+    n1 = n[1] if len(n) > 1 else 0       # NB = 1: no level below, as in C
+    blocks = NB + 2 * n1 + 2 + 2 * sum(n[1:-1])
     floats = BLK * BLK * blocks + (2 + 7) * BLK * NB + BLK * sum(n)
     return 4 * floats
 
@@ -137,15 +138,14 @@ def _library(system: ReactionDiffusionSystem):
                        ctypes.c_int, ctypes.c_float, ctypes.c_float]
     lib.ros23_step_launch.argtypes = step + [_P]
     lib.ros23_step_launch.restype = ctypes.c_int
-    # the same kernel with a block size and a part to stop after, for
-    # measurements
-    lib.ros23_step_probe.argtypes = step + [ctypes.c_int, ctypes.c_int, _P]
+    # the same kernel with a part to stop after, for measurements
+    lib.ros23_step_probe.argtypes = step + [ctypes.c_int, _P]
     lib.ros23_step_probe.restype = ctypes.c_int
     lib.ros23_arena_bytes.argtypes = [ctypes.c_int]
     lib.ros23_arena_bytes.restype = ctypes.c_longlong
     lib.ros23_arena_in_shared.argtypes = [ctypes.c_int]
     lib.ros23_arena_in_shared.restype = ctypes.c_int
-    lib.ros23_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.ros23_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     lib.ros23_blocks_per_sm.restype = ctypes.c_int
     return lib
 
@@ -180,11 +180,11 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(system, y, f_n, h, k_batch, d_eff, dr, *, threads=None,
-            stop_after=None, global_arena=None):
+def _launch(system, y, f_n, h, k_batch, d_eff, dr, *, stop_after=None,
+            global_arena=None):
     """Check the CUDA tensors, allocate outputs (and the global arenas
     where the shape needs them) and launch the kernel on the current
-    stream; raises if the card refuses the launch.  ``threads`` selects
+    stream; raises if the card refuses the launch.  ``stop_after`` selects
     the measuring entry of the library (see :func:`ros23_step_probe`)."""
     NB, _, B = y.shape
     dev = y.device
@@ -208,11 +208,10 @@ def _launch(system, y, f_n, h, k_batch, d_eff, dr, *, threads=None,
             float(dr), int(system.geometry is Geometry.SPHERICAL),
             float(_ROS_D), float(_ROS_E32)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if threads is None:
+    if stop_after is None:
         err = lib.ros23_step_launch(*args, stream)
     else:
-        err = lib.ros23_step_probe(*args, int(threads), int(stop_after),
-                                   stream)
+        err = lib.ros23_step_probe(*args, int(stop_after), stream)
     if err != 0:
         raise RuntimeError(f"ros23_step kernel launch failed: CUDA error "
                            f"{err}")
@@ -245,26 +244,24 @@ def ros23_step_fused(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
 
 
 def ros23_step_probe(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
-                     d_eff, dr: float, *, threads: int = 256,
-                     stop_after: int = 3, global_arena=None):
-    """The same kernel for measurements on CUDA tensors: ``threads`` per
-    block (a multiple of 32 up to 256); the kernel returns after part
-    ``stop_after`` (1: the bands, 2: the factor, 3: the whole step) and
-    leaves the outputs unwritten unless it is 3; ``global_arena=True``
+                     d_eff, dr: float, *, stop_after: int = 3,
+                     global_arena=None):
+    """The same kernel for measurements on CUDA tensors: it returns after
+    part ``stop_after`` (1: the bands, 2: the factor, 3: the whole step)
+    and leaves the outputs unwritten unless it is 3; ``global_arena=True``
     puts the arenas in global memory whatever the shape.  The solver
     never calls this, and it does not count in ``LAUNCHES``."""
-    return _launch(system, y, f_n, h, k_batch, d_eff, dr, threads=threads,
+    return _launch(system, y, f_n, h, k_batch, d_eff, dr,
                    stop_after=stop_after, global_arena=global_arena)
 
 
 def blocks_per_sm(system: ReactionDiffusionSystem, NB: int,
-                  threads: int = 256, global_arena=None) -> int:
-    """Resident blocks per SM that the card's occupancy calculator gives
-    the kernel for ``NB`` block rows."""
+                  global_arena=None) -> int:
+    """Resident blocks (of 256 threads) per SM that the card's occupancy
+    calculator gives the kernel for ``NB`` block rows."""
     if global_arena is None:
         global_arena = not arena_in_shared(NB)
-    n = _library(system).ros23_blocks_per_sm(int(NB), int(threads),
-                                             int(global_arena))
+    n = _library(system).ros23_blocks_per_sm(int(NB), int(global_arena))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n

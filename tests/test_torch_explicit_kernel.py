@@ -233,22 +233,28 @@ def test_fixed_iterations_converge_at_gsa_corners():
 
 
 def test_explicit_flops_hand_count():
-    """Nr=2 (one interior node), one fixed-point iteration, base system.
+    """Nr=2 (one interior node), one fixed-point iteration, base system,
+    in the kernel's hoisted form (1/dr^2, 1/(r dr), dr/d_eff taken once).
 
     Bulk reactions: five reversible bindings A+B<->C at 7 each (2 mults,
     1 mult, 1 sub, 3 accumulations) = 35; two catalysed
     phosphorylations at 6 each (2 mults, 1 mult, 1 sub, 2
     accumulations) = 12; aSFK->iSFK 3: 50.  Stencil and update: 10
-    species x (4 + 3 spherical + 4) = 110, plus r*dr: 111.  Node: 161.
-    bc_closure: 8 bindings x 4 = 32; Etot 4 adds + 1 mult = 5; the
-    kSa*Etot loss 2; 10 species x 7 = 70; aSFK 5: 114.
-    memb_rates: mE<->mES with the EGF scale 6 (2 mults, 1 mult, 1 sub,
-    2 accumulations); 2 mES<->mESmES 7 (2 mults, 1 mult, 1 sub, 2 + 1
-    accumulations); mESmES<->E 5; 8 bindings x 6 = 48: 66.
-    Membrane update 16.  Step: 161 + 114 + 66 + 16 = 357."""
-    assert explicit_cuda.explicit_flops(tg.base_system(), 2, 1) == 357
-    # rect drops the metric term: 10 x 3 + 1 fewer per node
-    assert explicit_cuda.explicit_flops(tg.rect_system(), 2, 1) == 326
+    species x (4 + 3 spherical + 4) = 110.  Node: 160.
+    Once a step: the membrane reactions, mE<->mES with the EGF scale 6
+    (2 mults, 1 mult, 1 sub, 2 accumulations), 2 mES<->mESmES 7 (2 mults,
+    1 mult, 1 sub, 2 + 1 accumulations), mESmES<->E 5: 18; the 8
+    bindings' off terms kr*m 8: 26.
+    Iteration: 8 bindings x 2 mults (kr*m, kf*m; one binding a species,
+    so no adds) 16; g*q + cn and l*q + 1 on the 8 species with a binding
+    32; 8 quotients; binding nets (kf*CR)*m - off and two accumulations
+    8 x 5 = 40; membrane update 16: 112.
+    Boundary values of the last iterate: Etot 4 adds + 1 mult 5; iSFK's
+    kSa*Etot, l*q + 1 and quotient 4; aSFK's cn + kq*CR*Et 3: 12.
+    Step: 160 + 26 + 112 + 12 = 310."""
+    assert explicit_cuda.explicit_flops(tg.base_system(), 2, 1) == 310
+    # rect drops the metric term: 10 x 3 fewer per node
+    assert explicit_cuda.explicit_flops(tg.rect_system(), 2, 1) == 280
     # linear in the interior nodes and in the iterations
     assert explicit_cuda.explicit_flops(tg.base_system(), 50, 4) == \
-        49 * 161 + 4 * 196
+        49 * 160 + 26 + 4 * 112 + 12

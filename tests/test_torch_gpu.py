@@ -19,7 +19,8 @@ of three stage vectors, so its rounding scales with its own size.
 Tolerance for the fused explicit solve against solve_explicit_plain (f32,
 a few hundred steps): relative norm error of C and of m <= 1e-4, taken in
 float64 (memb_sfk holds values ~1e32); the two differ by FMA contraction
-and by the card's reciprocal-multiply for ``x / scalar``.
+and by the kernel's hoisted reciprocals (1/dr^2, 1/(r dr), dr/d_eff) and
+its quotient by reciprocal and correction.
 """
 
 import numpy as np
@@ -100,22 +101,20 @@ def test_kernel_matches_plain(cuda, variant, grid, B):
 @pytest.mark.parametrize("grid", ["NB20", "NB200-global-arena"])
 def test_kernel_is_deterministic(cuda, grid):
     """Two launches on the same inputs give the same bits (the kernel has
-    no atomics), and so do 128 threads a block and, where the arena lies in
-    shared memory, the same arena in global memory: the arithmetic does not
-    depend on where the arena lies or on how the work is dealt to warps."""
+    no atomics), and so does, where the arena lies in shared memory, the
+    same arena in global memory: the arithmetic does not depend on where
+    the arena lies."""
     args, _, _ = _step_args(tg.base_system(), cuda, B=37,
                             dr=STEP_GRIDS[grid])
     first = ros23_cuda.ros23_step_fused(*args)
     second = ros23_cuda.ros23_step_fused(*args)
     system, y, f_n, h, k, d_eff, _, dr = args
     before = ros23_cuda.LAUNCHES
-    narrow = ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff, dr,
-                                         threads=128)
     in_global = ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff, dr,
                                             global_arena=True)
     torch.cuda.synchronize()
     assert ros23_cuda.LAUNCHES == before
-    for other in (second, narrow, in_global):
+    for other in (second, in_global):
         for a, b in zip(first, other):
             assert torch.equal(a, b)
 
@@ -152,11 +151,12 @@ def test_wrapper_rejects_bad_inputs(cuda):
     a[6] = NR + 1
     with pytest.raises(ValueError, match="expected"):
         ros23_cuda.ros23_step_fused(*a)
-    # a launch that is refused raises (257 threads a block)
+    # a launch that the library refuses raises (one block row: the probe
+    # passes NB < 2 on, the wrapper above refuses it itself)
     system, y, f_n, h, k, d_eff, _, dr = args
     with pytest.raises(RuntimeError, match="launch failed"):
-        ros23_cuda.ros23_step_probe(system, y, f_n, h, k, d_eff, dr,
-                                    threads=257)
+        ros23_cuda.ros23_step_probe(system, y[:1].contiguous(),
+                                    f_n[:1].contiguous(), h, k, d_eff, dr)
 
 
 def test_fused_solve_matches_unfused_on_card(cuda):
@@ -192,14 +192,21 @@ def _rel_norm(a, b):
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.parametrize("dr,tf", [(0.5, 0.2), (0.02, 2e-4)],
-                         ids=["21-nodes", "501-nodes"])
+# grids of the explicit kernel and its layouts: a warp per member at 2
+# nodes a lane (21 and 51 nodes) and at 4 (101), a block of 2 and of 4
+# warps per member (201 and 501 nodes), as (dr, tf)
+EXPLICIT_GRIDS = {"21-nodes": (0.5, 0.2), "51-nodes": (0.2, 0.03),
+                  "101-nodes": (0.1, 0.005), "201-nodes": (0.05, 0.002),
+                  "501-nodes": (0.02, 2e-4)}
+
+
+@pytest.mark.parametrize("grid", list(EXPLICIT_GRIDS))
 @pytest.mark.parametrize("variant", ["base_system", "rect_system",
                                      "memb_sfk_system"])
-def test_explicit_kernel_matches_plain(cuda, variant, dr, tf):
-    """Both instantiations of the kernel (blocks of up to 256 threads, and
-    of up to 1024) against the plain version; 37 members with different
-    step counts."""
+def test_explicit_kernel_matches_plain(cuda, variant, grid):
+    """Every instantiation of the kernel against the plain version; 37
+    members (an odd count) with different step counts."""
+    dr, tf = EXPLICIT_GRIDS[grid]
     system = getattr(tg, variant)()
     pb = tg.Params.unpack(torch.as_tensor(_ensemble(37), dtype=torch.float32,
                                           device=cuda))
@@ -216,6 +223,75 @@ def test_explicit_kernel_matches_plain(cuda, variant, dr, tf):
     assert torch.isfinite(Ck).all() and torch.isfinite(mk).all()
     assert _rel_norm(Ck, Cp) <= 1e-4
     assert _rel_norm(mk, mp) <= 1e-4
+
+
+def test_explicit_kernel_finest_grid(cuda):
+    """1026 nodes, the most the kernel takes: a block of 8 warps."""
+    pb = tg.Params.unpack(torch.as_tensor(_ensemble(3), dtype=torch.float32,
+                                          device=cuda))
+    Co = tg.default_co(dtype=torch.float32, device=cuda)
+    kw = dict(R=10.25, dr=0.01, tf=2e-5, maxiters=4)
+    assert explicit_cuda.launch_plan(1025).warps_per_member == 8
+    Ck, mk = explicit_cuda.solve_explicit_fused(tg.base_system(), Co, pb,
+                                                **kw)
+    Cp, mp = explicit_cuda.solve_explicit_plain(tg.base_system(), Co, pb,
+                                                **kw)
+    assert tuple(Ck.shape) == (3, 10, 1026)
+    assert _rel_norm(Ck, Cp) <= 1e-4 and _rel_norm(mk, mp) <= 1e-4
+
+
+@pytest.mark.parametrize("grid", ["51-nodes", "201-nodes"])
+def test_explicit_kernel_is_deterministic_and_order_free(cuda, grid):
+    """Two launches give the same bits, and so does the ensemble permuted:
+    each member's result does not depend on its slot, its block or the
+    members beside it; 11 members (an odd count) give the bits of the same
+    members in an ensemble of 16."""
+    dr, tf = EXPLICIT_GRIDS[grid]
+    P = _ensemble(16, seed=4)
+    Co = tg.default_co(dtype=torch.float32, device=cuda)
+    kw = dict(dr=dr, tf=tf, maxiters=4)
+
+    def solve(rows):
+        pb = tg.Params.unpack(torch.as_tensor(P[rows], dtype=torch.float32,
+                                              device=cuda))
+        return explicit_cuda.solve_explicit_fused(tg.base_system(), Co, pb,
+                                                  **kw)
+
+    rows = np.arange(16)
+    C1, m1 = solve(rows)
+    C2, m2 = solve(rows)
+    assert torch.equal(C1, C2) and torch.equal(m1, m2)
+    perm = np.random.default_rng(0).permutation(16)
+    Cp, mp = solve(perm)
+    assert torch.equal(Cp, C1[perm]) and torch.equal(mp, m1[perm])
+    C11, m11 = solve(rows[:11])
+    assert torch.equal(C11, C1[:11]) and torch.equal(m11, m1[:11])
+
+
+def test_explicit_refused_launch_raises(cuda):
+    """A layout that does not hold the grid's interior nodes is refused by
+    the library, and the wrapper's launch raises."""
+    system = tg.base_system()
+    pb = tg.Params.unpack(torch.as_tensor(_ensemble(4), dtype=torch.float32,
+                                          device=cuda))
+    z = torch.zeros(64, device=cuda)
+    nt = torch.ones(4, dtype=torch.int32, device=cuda)
+    C = torch.empty((4, 10, 201), device=cuda)
+    m = torch.empty((4, 8), device=cuda)
+    too_small = explicit_cuda.LaunchPlan(200, 2, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        explicit_cuda._launch(system, too_small, z, z, pb.k, z, z, nt,
+                              explicit_cuda.member_order(nt), C, m, 0.05, 4)
+
+
+def test_explicit_kernel_info(cuda):
+    """Each instantiation compiles without spills and fits the card."""
+    for Nr in (50, 100, 200):
+        info = explicit_cuda.kernel_info(tg.base_system(),
+                                         explicit_cuda.launch_plan(Nr))
+        assert 0 < info["registers"] <= 255
+        assert info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 1 and info["sm_clock_khz"] > 0
 
 
 def test_explicit_block_launches_and_f64_inputs(cuda):
