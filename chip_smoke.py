@@ -29,10 +29,11 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      unfused step (step_impl="torch");
   3. the bench headline in eager PyTorch: f32 RODAS4 under the
      lane-refill scheduler, N=1024, 256 lanes; member 0 against a tight
-     f64 RODAS4 solve (members 0-3 at rtol 1e-8, solved once for this
+     f64 RODAS4 solve (members 0-3 at rtol 1e-7, solved once for this
      phase and phase 5);
   4. the fused explicit solve against solve_explicit_plain at B=256,
-     tf=0.25 for base, rect and memb_sfk, at B=37 (an odd count), and on
+     tf=0.25 for base and tf=0.1 for rect and memb_sfk, at B=37 (an odd
+     count), and on
      finer grids (101, 201 and 501 nodes: each layout of the kernel);
      CUDA-event times of the plain version and of the kernel at that
      shape;
@@ -43,10 +44,22 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      serial-chain floor beside the bound; registers and blocks per SM of
      each layout;
   6. the engine and the GSA runner: eager run_ensemble(solver="explicit")
-     against the kernel, run_ensemble(solver="stiff") with the 6 GSA
+     against the kernel (tf=0.25), run_ensemble(solver="stiff") with the 6 GSA
      outputs and masked_quantiles, and a 325-solve eFAST sweep over the
      initial concentrations;
-  7. one JSON line describing every ported kernel.
+  7. the single-member stiff solver and the inference path at the fit
+     configuration (base system, default_co(), dr=0.2, tf=5, rtol 1e-4,
+     atol 1e-7, Nts=2, float64 state): solve_stiff with trbdf2 and rodas4
+     against solve_stiff_batch (B=1) on the card and a CPU solve; the log
+     posterior's value and forward-mode gradient through its autograd
+     Function against central finite differences; a scaled-down map_fit
+     with one LBFGS iteration in each of its stages;
+     the surrogate route of the fit_and_infer workload (a small Chebyshev
+     grid of batched solves, 4 NUTS chains on the surrogate, the exact
+     likelihood at the draws, importance reweighting, split R-hat, ESS
+     and divergences); no kernel of its own (the JAX package computes
+     this path with no Pallas kernel);
+  8. one JSON line describing every ported kernel.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  It needs no network and imports no
@@ -70,12 +83,35 @@ CFG = dict(dr=0.2, tf=5.0, Nts=2, rtol=1e-4, atol=1e-7)
 FINE_GRIDS = ((0.1, 64), (0.05, 64))
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 on the CUDA cores (dense)
 PEAK_HBM_BPS = 3.35e12   # H100 SXM HBM3
-# fused f32 explicit solve against f64 RODAS4 at rtol 1e-8, as
+# the tight f64 RODAS4 reference of phases 3 and 5 (members 0-3); rtol 1e-8
+# until phase 7 joined the script, 1e-7 since: a cut of depth, about 1.8x
+# fewer steps, with the reference's error still far below the errors it
+# measures
+REF_TOL = dict(rtol=1e-7, atol=1e-10)
+# fused f32 explicit solve against the f64 RODAS4 reference, as
 # max |dC| / (|C| + 0.2) over members 0-3 (3.8e-4 on an NVIDIA H100; phase 5)
 EXPLICIT_VS_STIFF = 1e-3
 # cycles a dependent f32 operation takes at least on the card (the FMA
 # pipeline's latency on Hopper)
 CYCLES_PER_CHAIN_OP = 4
+# phase 7: the fit configuration (inference/loss.make_observable_fn's
+# defaults: trbdf2, float64 state), the prior modes of the four fitted
+# parameters, and the smoke run's cuts of the inference workload
+FIT = dict(dr=0.2, tf=5.0, rtol=1e-4, atol=1e-7)
+FIT_MODES = (0.42, 9.5, 0.42, 9.5)
+FD_STEP = 1e-4
+# map_fit: the workload runs 101 starts, LBFGS from the best 8 for 30
+# iterations, then a dr=0.1 refinement.  Here: 2 starts (seed 123; the
+# better one's loss, 0.026, is off the loss floor, where a line search's
+# interval search doubles its step about a dozen times, each a
+# value-and-gradient solve), LBFGS from the better start for one iteration,
+# then one iteration of the refinement, at dr=0.2 (the fit configuration's
+# grid; the reference refines at dr=0.1)
+MAP_ARGS = dict(n_starts=2, n_local=1, max_iters=1, dr_coarse=0.2,
+                dr_fine=0.2, rtol=1e-4, seed=123)
+# Chebyshev nodes per axis: 4^4 = 256 solves (the workload: 17^4 = 83,521)
+SUR_GRID = 4
+NUTS_RUN = dict(chains=4, warmup=60, samples=50, max_depth=6, seed=0)
 
 
 def log(msg):
@@ -480,8 +516,8 @@ def _final_C(sol):
 
 
 def f64_reference(g, batch, dev):
-    """Final profiles of members 0-3 from tight f64 RODAS4 solves (rtol
-    1e-8): the yardstick of phases 3 and 5."""
+    """Final profiles of members 0-3 from tight f64 RODAS4 solves
+    (REF_TOL): the yardstick of phases 3 and 5."""
     import torch
 
     p64 = g.Params.unpack(torch.as_tensor(batch[:4], dtype=torch.float64,
@@ -489,10 +525,9 @@ def f64_reference(g, batch, dev):
     t0 = time.perf_counter()
     ref = g.solve_stiff_batch(g.base_system(), g.default_co(device=dev), p64,
                               device=dev, method="rodas4", dr=CFG["dr"],
-                              tf=CFG["tf"], Nts=CFG["Nts"], rtol=1e-8,
-                              atol=1e-11)
+                              tf=CFG["tf"], Nts=CFG["Nts"], **REF_TOL)
     torch.cuda.synchronize()
-    log(f"  f64 RODAS4 at rtol 1e-8, members 0-3: "
+    log(f"  f64 RODAS4 at rtol {REF_TOL['rtol']:g}, members 0-3: "
         f"{time.perf_counter() - t0:.1f} s")
     return ref.C[:, -1]
 
@@ -520,7 +555,8 @@ def phase3(g, batch, dev, Cref):
         raise RuntimeError(f"{n_failed} members failed")
     relerr = float(((out[0].double() - Cref[0]).abs()
                     / (Cref[0].abs() + 1e-8)).max())
-    log(f"  member 0 vs f64 RODAS4 at rtol 1e-8: max rel err {relerr:.3e}")
+    log(f"  member 0 vs f64 RODAS4 at rtol {REF_TOL['rtol']:g}: max rel err "
+        f"{relerr:.3e}")
     if not relerr <= 1e-3:
         raise RuntimeError("the refill headline is off the f64 reference")
     return N / wall
@@ -578,10 +614,14 @@ def phase4(g, batch, dev, erows):
 
     kw = dict(dr=CFG["dr"], tf=0.25, maxiters=4)
     pb = members(CHUNK)
-    results = [compare(f"{name} B={CHUNK} tf=0.25", system, pb, **kw)
-               for name, system in (("base", g.base_system()),
-                                    ("rect", g.rect_system()),
-                                    ("memb_sfk", g.memb_sfk_system()))]
+    # rect and memb_sfk at tf=0.1 (0.25 until phase 7 joined the script: a
+    # cut of depth); base, whose plain version is timed, at tf=0.25
+    results = [compare(f"{name} B={CHUNK} tf={tf}", system, pb,
+                       **dict(kw, tf=tf))
+               for name, system, tf in (("base", g.base_system(), 0.25),
+                                        ("rect", g.rect_system(), 0.1),
+                                        ("memb_sfk", g.memb_sfk_system(),
+                                         0.1))]
     # an odd ensemble
     results.append(compare("base B=37 tf=0.05", g.base_system(), members(37),
                            dr=0.2, tf=0.05, maxiters=4))
@@ -650,10 +690,11 @@ def phase5(g, batch, dev, erows, Cref):
 
     # members 0-3 against tight f64 RODAS4 solves of the same PDE:
     # |dC| <= rtol * (|C| + 0.2): the explicit scheme's O(dt) error and
-    # the 4-iteration fixed point against an adaptive solve at rtol 1e-8
+    # the 4-iteration fixed point against a tight adaptive solve
     dev_rel = float(((C[:4].double() - Cref).abs()
                      / (Cref.abs() + 0.2)).max())
-    log(f"  members 0-3 vs f64 RODAS4 at rtol 1e-8: max |dC|/(|C|+0.2) = "
+    log(f"  members 0-3 vs f64 RODAS4 at rtol {REF_TOL['rtol']:g}: max "
+        f"|dC|/(|C|+0.2) = "
         f"{dev_rel:.3e} (limit {EXPLICIT_VS_STIFF:.0e})")
     if not dev_rel <= EXPLICIT_VS_STIFF:
         raise RuntimeError("the fused explicit solve is off the f64 "
@@ -724,10 +765,12 @@ def phase6(g, batch, dev):
     from gab1_shp2_tpu_torch.ops import explicit_cuda
 
     system = g.base_system()
-    # (a) the eager explicit path through run_ensemble against the kernel
+    # (a) the eager explicit path through run_ensemble against the kernel;
+    # tf=0.25 (it was 0.5 until phase 7 joined the script: a cut of depth,
+    # the ~1,800 host-paced loop steps halved, to hold the script's wall)
     n = min(64, N)
     chunk = max(1, n // 2)
-    kw = dict(dr=0.5, tf=0.5)
+    kw = dict(dr=0.5, tf=0.25)
     Co64 = g.default_co(device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -737,7 +780,7 @@ def phase6(g, batch, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pb = g.Params.unpack(torch.as_tensor(batch[:n], device=dev))
-    nt = torch.ceil(0.5 / stability_dt(pb, 0.5)).sort().values
+    nt = torch.ceil(kw["tf"] / stability_dt(pb, kw["dr"])).sort().values
     loop_steps = sum(int(nt[min(s + chunk, n) - 1])
                      for s in range(0, n, chunk))
     Ck, mk = explicit_cuda.solve_explicit_fused(system, Co64, pb,
@@ -747,8 +790,9 @@ def phase6(g, batch, dev):
         raise RuntimeError("run_ensemble(solver='explicit') lost members")
     err_C = float(((Ck.double() - Ce).abs() - 3e-5 * Ce.abs()).max())
     err_m = float(((mk.double() - me).abs() - 3e-5 * me.abs()).max())
-    log(f"  eager explicit run_ensemble N={n} dr=0.5 tf=0.5 (f64, maxiters "
-        f"20, tol 0): {wall:.2f} s, {loop_steps} loop steps, "
+    log(f"  eager explicit run_ensemble N={n} dr=0.5 tf={kw['tf']} (f64, "
+        f"maxiters 20, tol 0; tf cut from 0.5): {wall:.2f} s, {loop_steps} "
+        f"loop steps, "
         f"{wall / loop_steps * 1e3:.2f} ms per step of {chunk} members; "
         f"vs fused f32 kernel: max(|d| - 3e-5|x|) C {err_C:.3e} (limit "
         f"1e-4), m {err_m:.3e} (limit 1e-6)")
@@ -795,6 +839,162 @@ def phase6(g, batch, dev):
     if S1.shape != (5, 6) or not (np.isfinite(S1).all()
                                   and np.isfinite(ST).all()):
         raise RuntimeError("eFAST indices are not finite of shape (5, 6)")
+
+
+def phase7(g, dev):
+    """The single-member stiff solver and the inference path on the card
+    at the fit configuration; returns the readings logged at the end."""
+    import torch
+    from gab1_shp2_tpu_torch.inference import loss as tl
+    from gab1_shp2_tpu_torch.inference import nuts as tn
+    from gab1_shp2_tpu_torch.inference import surrogate as ts
+    from gab1_shp2_tpu_torch.inference.diagnostics import check_chains
+    from gab1_shp2_tpu_torch.inference.map_fit import map_fit
+    from gab1_shp2_tpu_torch.models.observables import pct_shp2_bound_gab1
+    from gab1_shp2_tpu_torch.ops.trbdf2 import solve_stiff
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    system = g.base_system()
+    Co = g.default_co(device=dev)
+    p = g.default_params(fit="prior", device=dev)
+    kw = dict(FIT, Nts=2)
+    read = {}
+
+    # (1) solve_stiff against solve_stiff_batch (B=1) on the card and a
+    # CPU solve of the port
+    for method in ("trbdf2", "rodas4"):
+        (sol, st), wall = timed(lambda: solve_stiff(
+            system, Co, p, device=dev, method=method, return_stats=True,
+            **kw))
+        sb = g.solve_stiff_batch(system, Co, g.Params(D=p.D[None],
+                                                      k=p.k[None]),
+                                 device=dev, method=method, **kw)
+        err_b = float((sol.C - sb.C[0]).abs().max() / sb.C[0].abs().max())
+        t0 = time.perf_counter()
+        sol_c = solve_stiff(system, Co.cpu(), p.to(device="cpu"),
+                            device="cpu", method=method, **kw)
+        wall_c = time.perf_counter() - t0
+        y = float(pct_shp2_bound_gab1(sol, Co, 10.0))
+        y_c = float(pct_shp2_bound_gab1(sol_c, Co.cpu(), 10.0))
+        err_y = abs(y - y_c) / abs(y_c)
+        read[f"solve_{method}_s"] = wall
+        log(f"  solve_stiff {method}: {wall:.2f} s, {int(st.n_accepted)} "
+            f"accepted / {int(st.n_rejected)} rejected, failed "
+            f"{bool(st.failed)}; C vs solve_stiff_batch (B=1) {err_b:.3e} "
+            f"(limit 1e-6); pct_shp2_bound_gab1 {y:.10f} vs the CPU's "
+            f"{y_c:.10f}: {err_y:.3e} (limit 1e-8); the CPU solve "
+            f"{wall_c:.2f} s")
+        if bool(st.failed) or not err_b <= 1e-6 or not err_y <= 1e-8:
+            raise RuntimeError(f"solve_stiff {method} is off")
+
+    # (2) the log posterior's value and gradient through the autograd
+    # Function, against central finite differences of batched solves
+    x = torch.as_tensor(np.log(FIT_MODES), device=dev)
+    lp = tl.make_log_posterior(tl.make_observable_fn(device=dev, **FIT))
+
+    def value_and_grad():
+        q = x.clone().requires_grad_(True)
+        v = lp(q)
+        (gr,) = torch.autograd.grad(v, q)
+        return float(v.detach()), gr
+
+    (v, gr), wall = timed(value_and_grad)
+    read["value_and_grad_s"] = wall
+    eye = np.eye(4) * FD_STEP
+    Q = np.concatenate([np.log(FIT_MODES) + eye, np.log(FIT_MODES) - eye])
+    (y_fd, wall_fd) = timed(lambda: tl.make_batch_observable(
+        device=dev, **FIT)(Q))
+    lp_fd = tl.make_log_posterior(
+        lambda q: torch.as_tensor(y_fd, device=dev), wrap_vjp=False)
+    vals = lp_fd(torch.as_tensor(Q, device=dev))
+    g_fd = ((vals[:4] - vals[4:]) / (2 * FD_STEP)).cpu().numpy()
+    g_ad = gr.cpu().numpy()
+    err_g = float(np.max(np.abs(g_fd - g_ad)) / np.max(np.abs(g_ad)))
+    log(f"  log posterior at the prior modes: {v:.10f}; value + gradient "
+        f"{wall:.2f} s; gradient " + ", ".join(f"{a:.6f}" for a in g_ad)
+        + "; central differences (step 1e-4, 8 batched solves, "
+        f"{wall_fd:.2f} s) " + ", ".join(f"{a:.6f}" for a in g_fd)
+        + f": max rel {err_g:.3e} (limit 1e-4)")
+    if not (np.isfinite(v) and err_g <= 1e-4 and g_ad[2] > 0
+            and g_ad[1] < 0):
+        raise RuntimeError("the log posterior's gradient is off")
+
+    # (3) map_fit, scaled down: LBFGS through the stiff solve in both
+    # of its stages
+    res, wall = timed(lambda: map_fit(device=dev, **MAP_ARGS))
+    best = float(np.nanmin(res.start_losses))
+    read["map_fit_s"] = wall
+    log(f"  map_fit {MAP_ARGS}: {wall:.1f} s; start losses "
+        + ", ".join(f"{v:.6g}" for v in res.start_losses)
+        + f"; final loss {res.loss:.6g} at "
+        + ", ".join(f"{n}={v:.4g}" for n, v in res.values.items()))
+    # TestMAPFit's criterion, with the iterations lowering the loss below
+    # the best start's
+    if not (np.isfinite(res.loss) and res.loss < best):
+        raise RuntimeError("map_fit did not improve on its best start")
+
+    # (4) the surrogate route of the fit_and_infer workload
+    lo, hi = tl.prior_box()
+    batch_obs = tl.make_batch_observable(
+        device=dev, dr=FIT["dr"], rtol=FIT["rtol"], method="rodas4",
+        linsolve_dtype=torch.float32, max_steps=4000)
+    (sur, grid_vals), wall = timed(lambda: ts.build_surrogate(
+        batch_obs, lo, hi, n=SUR_GRID, device=dev))
+    read["surrogate_s"] = wall
+    n_bad = int((~np.isfinite(grid_vals)).sum())
+    log(f"  surrogate: {SUR_GRID}^4 = {SUR_GRID ** 4} grid solves "
+        f"(rodas4, f32 linear algebra) in {wall:.2f} s, {n_bad} failed")
+    if n_bad:
+        raise RuntimeError("surrogate grid solves failed")
+    lp_s = tl.make_log_posterior(sur.y, wrap_vjp=False)
+    C_ = NUTS_RUN["chains"]
+    q0 = torch.as_tensor(res.log_k4, device=dev).expand(C_, 4).clone()
+    (qs, info), wall = timed(lambda: tn.run_nuts(
+        lp_s, q0, tn.chain_generators(NUTS_RUN["seed"], C_),
+        num_warmup=NUTS_RUN["warmup"], num_samples=NUTS_RUN["samples"],
+        max_depth=NUTS_RUN["max_depth"]))
+    read["nuts_s"] = wall
+    Qd = qs.reshape(-1, 4).cpu().numpy()
+    exact_obs = tl.make_batch_observable(
+        device=dev, dr=FIT["dr"], rtol=1e-6, atol=1e-9, method="rodas4",
+        linsolve_dtype=torch.float32, max_steps=40_000)
+    y_exact, wall_x = timed(lambda: exact_obs(Qd))
+    read["reweight_s"] = wall_x
+    y_sur = sur.y(torch.as_tensor(Qd, device=dev)).detach()
+    ll_exact = tl.datum_loglik(torch.as_tensor(y_exact)).numpy()
+    ll_sur = tl.datum_loglik(y_sur.cpu()).numpy()
+    w, ess_w = ts.importance_reweight(ll_exact, ll_sur)
+    div = info["diverged"].cpu().numpy()
+    rep = check_chains(qs.cpu().numpy(), div, names=tl.FIT_NAMES)
+    dlog = np.abs(np.log(np.maximum(y_exact, 1e-12))
+                  - np.log(np.maximum(y_sur.cpu().numpy(), 1e-12)))
+    log(f"  NUTS on the surrogate: {C_} chains x ({NUTS_RUN['warmup']} "
+        f"warmup + {NUTS_RUN['samples']} draws), max depth "
+        f"{NUTS_RUN['max_depth']}: {wall:.1f} s; mean tree depth "
+        f"{float(info['depth'].float().mean()):.2f}; divergences "
+        f"{int(div.sum())}/{div.size} (rate {rep['divergence_rate']:.3f})"
+        "; split R-hat " + ", ".join(f"{k}={r:.3f}"
+                                     for k, r in rep["rhat"].items())
+        + "; ESS " + ", ".join(f"{k}={e:.0f}" for k, e in rep["ess"].items())
+        + f"; health gate ok={rep['ok']} {rep['failures']}")
+    log(f"  exact likelihood at the {len(Qd)} draws (rodas4, rtol 1e-6, "
+        f"f32 linear algebra): {wall_x:.2f} s, "
+        f"{int((~np.isfinite(y_exact)).sum())} failed; surrogate vs exact "
+        f"max |dlog y| {float(np.max(dlog)):.3g}; importance ESS "
+        f"{ess_w:.1f} / {len(Qd)}")
+    if not (torch.isfinite(qs).all() and np.isfinite(y_exact).all()
+            and np.isfinite(ess_w) and ess_w >= 1.0
+            and np.isfinite(rep["divergence_rate"])
+            and all(np.isfinite(r) for r in rep["rhat"].values())
+            and not any("frozen" in f for f in rep["failures"])):
+        raise RuntimeError("the surrogate route failed")
+    return read
 
 
 def main():
@@ -869,7 +1069,13 @@ def main():
     phase6(g, batch, dev)
     log(f"phase 6 wall {time.perf_counter() - t:.1f} s")
 
-    log("phase 7: kernels")
+    t = time.perf_counter()
+    log("phase 7: the single-member stiff solver and the inference path "
+        "(dr=0.2, tf=5, float64)")
+    inf = phase7(g, dev)
+    log(f"phase 7 wall {time.perf_counter() - t:.1f} s")
+
+    log("phase 8: kernels")
     kernels = [dict(
         name="ros23_step_fused", route="cuda",
         source="gab1_shp2_tpu_torch/csrc/ros23_step.cu",
@@ -906,6 +1112,8 @@ def main():
     log(f"solves/s (first readings, not a benchmark): chunked fused "
         f"rosenbrock23 {sps2:.2f}, refill rodas4 {sps3:.2f}, fused "
         f"explicit {sps5:.2f}")
+    log("inference path, wall s (first readings): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in inf.items()))
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,6 +35,7 @@ from gab1_shp2_tpu_torch.ops.batch_stiff import (  # noqa: E402
     solve_stiff_refill,
 )
 from gab1_shp2_tpu_torch.ops.explicit import solve_explicit  # noqa: E402
+from gab1_shp2_tpu_torch.ops.trbdf2 import solve_stiff  # noqa: E402
 from gab1_shp2_tpu_torch.ensemble.engine import (  # noqa: E402
     masked_quantiles,
     run_ensemble,
@@ -51,6 +52,7 @@ __all__ = [
     "base_system",
     "memb_sfk_system",
     "rect_system",
+    "solve_stiff",
     "solve_stiff_batch",
     "solve_stiff_refill",
     "solve_explicit",

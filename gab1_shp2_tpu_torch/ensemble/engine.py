@@ -133,15 +133,19 @@ def run_ensemble(
     N = pb.k.shape[0]
 
     if solver == "stiff":
-        if jac_reuse:
-            raise NotImplementedError(
-                "jac_reuse is not ported yet (ROADMAP A10)")
         kw = dict(R=R, dr=dr, tf=tf, Nts=Nts, rtol=rtol, atol=atol,
                   method=method, linsolve_dtype=linsolve_dtype,
                   max_steps=max_steps, t_prechase=t_prechase)
         if scheduler is None:
-            scheduler = "refill"
+            # jac_reuse's refresh votes are collective over a chunk, so
+            # it needs fixed chunk membership
+            scheduler = "sorted" if jac_reuse else "refill"
         if scheduler == "refill":
+            if jac_reuse:
+                raise ValueError(
+                    "scheduler='refill' is incompatible with jac_reuse "
+                    "(collective refresh votes need fixed chunk "
+                    "membership); use scheduler='sorted'")
             return _run_stiff_refill(system, Co, pb, N, extract, chunk,
                                      refill_group, dev, kw)
         if scheduler != "sorted":
@@ -149,7 +153,8 @@ def run_ensemble(
 
         def chunk_solver(p: Params):
             sol, stats = solve_stiff_batch(system, Co, p, device=dev,
-                                           return_stats=True, **kw)
+                                           return_stats=True,
+                                           jac_reuse=jac_reuse, **kw)
             out = _extract_members(extract, sol)
             ok = ~stats.failed & torch.isfinite(sol.C[:, -1]).all(
                 dim=-1).all(dim=-1)
@@ -157,7 +162,8 @@ def run_ensemble(
 
         if chunk is None or chunk >= N:
             return chunk_solver(pb)[:2]
-        return _run_stiff_cost_sorted(chunk_solver, pb, N, int(chunk))
+        return _run_stiff_cost_sorted(chunk_solver, pb, N, int(chunk),
+                                      sort=not jac_reuse)
 
     # explicit: per-member stability dt with a shared step count
     # (reference semantics, basepdesolver.jl:30)
@@ -199,7 +205,7 @@ def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, dev,
     return _cat(outs)
 
 
-def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk):
+def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):
     """Chunked stiff dispatch with pilot-fit cost-sorted scheduling.
 
     A batched adaptive integration runs until its slowest lane finishes,
@@ -209,13 +215,15 @@ def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk):
     log(params) on its lanes, and solve the remaining members in
     predicted-cost order.  Per-lane results do not depend on chunk
     membership (lanes step independently; finished lanes idle), so
-    reordering never changes results.
+    reordering never changes results — except under ``jac_reuse``, whose
+    band refreshes are collective per chunk: ``sort=False`` keeps the
+    original in-order chunking there.
     """
     pilot_idx = np.arange(chunk)
     out_p, ok_p, steps_p = chunk_solver(_take(pb, pilot_idx))
 
     rest = np.arange(chunk, N)
-    if rest.size:
+    if sort and rest.size:
         packed = pb.pack().detach().cpu().numpy().astype(np.float64)
         X = np.log(np.maximum(packed, 1e-300))
         A = np.column_stack([X[pilot_idx], np.ones(chunk)])

@@ -140,6 +140,11 @@ MAP_FIT = {
 }
 
 
+# The single experimental fit datum: % SHP2-bound GAB1 at 5 min EGF
+# (Julia/exptl_pct_SHP2-bound-GAB1.csv).
+EXPTL_PCT_SHP2_BOUND_GAB1 = (26.426, 9.363293460636593)  # (mu, sigma)
+
+
 def default_params(fit: str = "posterior_median", dtype=torch.float64,
                    device=None) -> Params:
     """Baseline parameters.

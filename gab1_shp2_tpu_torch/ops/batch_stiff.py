@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -36,7 +37,11 @@ from gab1_shp2_tpu_torch.models.system import (
     ReactionDiffusionSystem,
 )
 from gab1_shp2_tpu_torch.ops import rhs as rhs_mod
-from gab1_shp2_tpu_torch.ops.jacobian import BLK, interior_radii, lane_bands
+from gab1_shp2_tpu_torch.ops.jacobian import (
+    BLK,
+    interior_radii,
+    lane_bands,
+)
 from gab1_shp2_tpu_torch.ops.rhs import kdict
 from gab1_shp2_tpu_torch.ops.solution import Solution
 from gab1_shp2_tpu_torch.ops.trbdf2 import (
@@ -365,11 +370,14 @@ class _SolverCtx:
             it += 1
         return y, dn <= self.ntol
 
-    def step(self, f, lp: _LaneParams, t1, active, st: LaneState):
+    def step(self, f, lp: _LaneParams, t1, active, st: LaneState,
+             jac=None):
         """One adaptive step for every lane; ``active`` masks the lanes
         allowed to advance (inactive lanes keep their state bit for bit).
-        ``t1`` is the leg end, a float or a (B,) tensor.  Returns
-        ``(updated state, per-lane step-success flags)``."""
+        ``t1`` is the leg end, a float or a (B,) tensor; ``jac``
+        optionally supplies cached bands (the TRBDF2 ``jac_reuse`` path),
+        otherwise they are rebuilt from ``y``.  Returns ``(updated state,
+        per-lane step-success flags)``."""
         method, ls, dtype = self.method, self.ls_dtype, self.dtype
         t, h_carry, y = st.t, st.h, st.y
         # step size: truncated to the leg end for active lanes, a
@@ -378,7 +386,9 @@ class _SolverCtx:
                         torch.ones_like(h_carry))
 
         f_n = f(y)
-        if not (method == "rosenbrock23" and self.step_impl == "fused"):
+        if jac is not None:
+            Lj, Dj, Uj = jac
+        elif not (method == "rosenbrock23" and self.step_impl == "fused"):
             Lj, Dj, Uj = self.bands(y, lp)
         hb = h[None, None, None, :].to(ls)
         hd = h[None, None, :]
@@ -478,8 +488,14 @@ class _SolverCtx:
                          failed), ok
 
 
+# band age (accepted or rejected steps) that forces a refresh under
+# jac_reuse
+JAC_MAX_AGE = 20
+
+
 def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
-                      max_steps, h0, method, linsolve_dtype, step_impl):
+                      max_steps, h0, method, linsolve_dtype, step_impl,
+                      jac_reuse=False):
     dtype, dev = Co.dtype, Co.device
     B = params.k.shape[0]
     tf_total = legs[-1][1]
@@ -506,16 +522,33 @@ def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
                    y=y0, nts=torch.ones(B, **i32), out_C=out_C, out_m=out_m,
                    nacc=torch.zeros(B, **i32), nrej=torch.zeros(B, **i32),
                    failed=torch.zeros(B, dtype=torch.bool, device=dev))
+    # Jacobian reuse (TRBDF2 only; for a Newton method a stale J slows
+    # convergence but never moves the converged solution): the bands
+    # are refreshed at leg entry, after a step on which some lane's
+    # Newton iteration failed, and at age JAC_MAX_AGE; W is refactored
+    # from the cached bands every step.  The refresh is collective over
+    # the batch, so results depend on the batch's membership.
+    reuse = bool(jac_reuse) and method == "trbdf2"
     for (t0, t1, p) in legs:
         lp = ctx.lane_params(p)
         f = ctx.make_f(lp)
         st = st._replace(t=torch.clamp(st.t, min=t0))
+        jac, j_age, want_refresh = None, 0, False
+        if reuse:
+            jac = ctx.bands(st.y, lp)
         while True:
             running = ((st.t < t1 - eps) & ~st.failed
                        & (st.nacc + st.nrej < max_steps))
             if not bool(running.any()):
                 break
-            st, _ = ctx.step(f, lp, t1, st.t < t1 - eps, st)
+            active = st.t < t1 - eps
+            if reuse and (want_refresh or j_age >= JAC_MAX_AGE):
+                jac, j_age = ctx.bands(st.y, lp), 0
+            st, ok = ctx.step(f, lp, t1, active, st, jac=jac)
+            if reuse:
+                # a Newton failure invalidates the (possibly stale) J
+                want_refresh = bool((active & ~ok).any())
+                j_age += 1
     failed = st.failed | (st.nts <= Nts)
 
     t_save = torch.linspace(0.0, tf_total, Nts + 1,
@@ -644,11 +677,8 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
     return out_all, ok_all, steps_all
 
 
-def _prepare(Co, params, device, jac_reuse, rhs_mixed):
+def _prepare(Co, params, device, rhs_mixed):
     """Shared argument handling of the two entry points."""
-    if jac_reuse:
-        raise NotImplementedError(
-            "jac_reuse is not ported yet (ROADMAP A10)")
     if rhs_mixed:
         raise NotImplementedError(
             "rhs_mixed is not ported yet (ROADMAP A14)")
@@ -693,7 +723,7 @@ def solve_stiff_refill(
     Returns ``(out, ok, steps)``: the per-member extracted outputs with a
     leading (N,) axis, a success mask, and per-member step counts.
     """
-    Co, params = _prepare(Co, params, device, False, rhs_mixed)
+    Co, params = _prepare(Co, params, device, rhs_mixed)
     params2 = None
     if t_prechase is not None:
         params2 = params.replace(kp=0.0)
@@ -741,8 +771,14 @@ def solve_stiff_batch(
     algebra).  ``step_impl``: ``"torch"`` (default, the unfused step) or
     ``"fused"`` (the fused Rosenbrock23 kernel; float32 rosenbrock23
     with float32 linear algebra only).
+
+    ``jac_reuse=True`` (trbdf2 only; ignored for the other methods)
+    amortizes the Jacobian band refresh across steps (refreshed by age,
+    Newton failure or a leg change; W is refactored every step), so
+    solutions agree with the default to the integration tolerance, not
+    bit for bit.
     """
-    Co, params = _prepare(Co, params, device, jac_reuse, rhs_mixed)
+    Co, params = _prepare(Co, params, device, rhs_mixed)
     if t_prechase is None:
         legs = ((0.0, float(tf), params),)
     else:
@@ -761,7 +797,8 @@ def solve_stiff_batch(
     sol, stats = _solve_batch_impl(system, Co, params, legs, float(R),
                                    float(dr), int(Nts), rtol, atol,
                                    int(max_steps), float(h0), method,
-                                   linsolve_dtype, step_impl)
+                                   linsolve_dtype, step_impl,
+                                   jac_reuse=bool(jac_reuse))
     if return_stats:
         return sol, stats
     return sol

@@ -10,7 +10,9 @@ Counterpart of ``gab1_shp2_tpu/ops/rhs.py``:
                       (``basepdesolver.jl:197-215``),
   * ``laplacian``   — the node-major diffusion stencil of the explicit
                       path, and ``full_profile`` (interior nodes plus the
-                      two algebraic boundary nodes).
+                      two algebraic boundary nodes),
+  * ``make_mol_rhs`` — the single-member MoL right-hand side of
+                      ``ops/trbdf2.solve_stiff``.
 
 The loops over the reaction tables run in Python on every call; each term
 is one small tensor op.  All functions are written without in-place
@@ -83,10 +85,11 @@ def _net_reaction_terms(reactions, conc, k: Dict[str, torch.Tensor], out):
                 c = conc(s)
                 rr = rr * (c if st == 1 else c**st)
             net = rf - rr
+        # a unit stoichiometry multiplies exactly, so it is skipped
         for s, st in zip(rx.reactants, rx.r_stoich()):
-            out[s] = out[s] - st * net
+            out[s] = out[s] - (net if st == 1 else st * net)
         for s, st in zip(rx.products, rx.p_stoich()):
-            out[s] = out[s] + st * net
+            out[s] = out[s] + (net if st == 1 else st * net)
     return out
 
 
@@ -202,3 +205,27 @@ def full_profile(system: ReactionDiffusionSystem, y: MolState,
     """The (..., 10, Nr+1) bulk profile including both boundary nodes."""
     C_R = bc_closure(system, y.C_int[..., -1], y.m, k, d_eff, dr)
     return torch.cat([y.C_int[..., :1], y.C_int, C_R[..., None]], dim=-1)
+
+
+def make_mol_rhs(system: ReactionDiffusionSystem, R: float, dr: float):
+    """The single-member MoL right-hand side ``f(y: MolState, params)``
+    and the (Nr+1,) float64 radial grid.
+
+    Boundary closures are algebraic, so there is no inner iteration;
+    ``torch.func.jvp``/``vmap`` trace it (the single-member stiff solver
+    differentiates through it).  The grid is cast to the state's dtype.
+    """
+    Nr = int(round(R / dr))
+    r = torch.arange(Nr + 1, dtype=torch.float64) * dr
+
+    def rhs(y: MolState, params: Params) -> MolState:
+        k = kdict(params.k)
+        d_eff = effective_diffusivities(system, params)
+        C_full = full_profile(system, y, k, d_eff, dr)
+        lap = laplacian(system, C_full,
+                        r.to(dtype=C_full.dtype, device=C_full.device), dr)
+        dC = d_eff[..., :, None] * lap + bulk_rates(system, y.C_int, k)
+        dm = memb_rates(system, y.m, C_full[..., -1], k)
+        return MolState(C_int=dC, m=dm)
+
+    return rhs, r

@@ -149,7 +149,6 @@ def _small_call(**kw):
           linsolve_dtype=torch.float64), ValueError, "float32"),
     (dict(step_impl="pallas"), ValueError, "step_impl"),
     (dict(method="euler"), ValueError, "method"),
-    (dict(jac_reuse=True), NotImplementedError, "A10"),
     (dict(rhs_mixed="df32"), NotImplementedError, "A14"),
 ])
 def test_scope_guards(kw, exc, match):

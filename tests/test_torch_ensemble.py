@@ -166,8 +166,8 @@ def test_argument_errors():
         _t_run(batch, solver="implicit", scheduler="refill", **FAST)
     with pytest.raises(NotImplementedError, match="A13"):
         _t_run(batch, device_axis="ensemble", **FAST)
-    with pytest.raises(NotImplementedError, match="A10"):
-        _t_run(batch, jac_reuse=True, **FAST)
+    with pytest.raises(ValueError, match="jac_reuse"):
+        _t_run(batch, jac_reuse=True, scheduler="refill", **FAST)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tg.run_ensemble(tg.base_system(), tg.default_co(device="cpu"),

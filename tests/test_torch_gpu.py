@@ -355,3 +355,98 @@ def test_default_device_is_the_card(cuda):
                             tg.default_params(device="cpu"), dr=1.0, tf=0.05,
                             Nts=1)
     assert sol.C.device.type == "cuda"
+
+
+# --- the single-member stiff solver and the inference path ----------------
+
+SINGLE_KW = dict(dr=1.0, tf=0.5, Nts=2, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("method", ["trbdf2", "rosenbrock23", "rodas3",
+                                    "rodas4"])
+def test_solve_stiff_on_the_card(cuda, method):
+    """float64 solve_stiff on the card against the port on the CPU: step
+    counts within +-2, values within 1e-8 relative to the largest."""
+    from gab1_shp2_tpu_torch.ops.trbdf2 import solve_stiff
+
+    (sg, stg), (sc, stc) = (
+        solve_stiff(tg.base_system(), tg.default_co(device=dev),
+                    tg.default_params(device=dev), device=dev, method=method,
+                    return_stats=True, **SINGLE_KW)
+        for dev in (cuda, torch.device("cpu")))
+    assert sg.C.device.type == cuda.type and not bool(stg.failed)
+    assert abs(int(stg.n_accepted) - int(stc.n_accepted)) <= 2
+    assert abs(int(stg.n_rejected) - int(stc.n_rejected)) <= 2
+    for a, b in ((sg.C, sc.C), (sg.m, sc.m)):
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert err < 1e-8, err
+
+
+def test_log_posterior_gradient_on_the_card(cuda):
+    """The autograd Function's value and gradient on the card against the
+    CPU (rodas4, dr=1, tf=0.5, rtol 1e-3): within 1e-8 relative."""
+    from gab1_shp2_tpu_torch.inference import loss as tl
+
+    kw = dict(dr=1.0, tf=0.5, rtol=1e-3, atol=1e-6, method="rodas4")
+    x = np.log([0.42, 9.5, 0.42, 9.5])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        lp = tl.make_log_posterior(tl.make_observable_fn(device=dev, **kw))
+        q = torch.as_tensor(x, device=dev).requires_grad_(True)
+        v = lp(q)
+        (g,) = torch.autograd.grad(v, q)
+        out.append((float(v.detach()), g.cpu().numpy()))
+    (vg, gg), (vc, gc) = out
+    assert np.isfinite(vg) and abs(vg - vc) / abs(vc) < 1e-8
+    assert np.max(np.abs(gg - gc)) / np.max(np.abs(gc)) < 1e-8
+    assert gg[2] > 0 and gg[1] < 0
+
+
+def test_lbfgs_on_the_card(cuda):
+    """Projected LBFGS on a 4-D quadratic on the card: the CPU's iterates
+    and the minimizer."""
+    from gab1_shp2_tpu_torch.inference.map_fit import lbfgs_minimize
+
+    A = np.diag([1.0, 10.0, 100.0, 3.0]) + 0.5
+    b = np.array([1.0, -2.0, 0.5, 3.0])
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        At, bt = torch.as_tensor(A, device=dev), torch.as_tensor(b, device=dev)
+
+        def f(x):
+            return 0.5 * x @ At @ x - bt @ x
+
+        x, v = lbfgs_minimize(f, torch.zeros(4, dtype=torch.float64,
+                                             device=dev), max_iters=30)
+        assert x.device.type == dev.type
+        res.append(x.cpu().numpy())
+    np.testing.assert_allclose(res[0], res[1], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(res[0], np.linalg.solve(A, b), rtol=0,
+                               atol=1e-8)
+
+
+def test_nuts_on_a_surrogate_on_the_card(cuda):
+    """Four chains on a Chebyshev surrogate posterior on the card:
+    finite draws on the device, a healthy run by check_chains."""
+    from gab1_shp2_tpu_torch.inference import loss as tl
+    from gab1_shp2_tpu_torch.inference import nuts as tn
+    from gab1_shp2_tpu_torch.inference import surrogate as ts
+    from gab1_shp2_tpu_torch.inference.diagnostics import check_chains
+
+    lo, hi = tl.prior_box()
+
+    def batch_fn(Q):
+        return 30.0 * np.exp(0.3 * np.tanh(Q[:, 0] - Q[:, 1])
+                             + 0.2 * np.tanh(Q[:, 2] - Q[:, 3]))
+
+    sur, _ = ts.build_surrogate(batch_fn, lo, hi, n=6, device=cuda)
+    lp = tl.make_log_posterior(sur.y, wrap_vjp=False)
+    x0 = torch.as_tensor(np.log([1.27, 3.12, 0.79, 4.67]), device=cuda)
+    qs, info = tn.run_nuts(lp, x0.expand(4, 4).clone(),
+                           tn.chain_generators(0, 4), num_warmup=100,
+                           num_samples=100, max_depth=6)
+    assert qs.device.type == cuda.type and qs.shape == (4, 100, 4)
+    assert bool(torch.isfinite(qs).all())
+    rep = check_chains(qs.cpu().numpy(), info["diverged"].cpu().numpy(),
+                       names=tl.FIT_NAMES)
+    assert rep["ok"], rep["failures"]

@@ -158,6 +158,21 @@ def test_import_pulls_in_no_jax():
         "import gab1_shp2_tpu_torch.gsa.efast\n"
         "import gab1_shp2_tpu_torch.gsa.sobol\n"
         "import gab1_shp2_tpu_torch.gsa.runner\n"
+        "import gab1_shp2_tpu_torch.ops.smalllu\n"
+        "import gab1_shp2_tpu_torch.ops.blocktridiag\n"
+        "import gab1_shp2_tpu_torch.ops.cyclic_reduction\n"
+        "import gab1_shp2_tpu_torch.ops.fwdgrad\n"
+        "import gab1_shp2_tpu_torch.ops.trbdf2\n"
+        "import gab1_shp2_tpu_torch.priors.protocol\n"
+        "import gab1_shp2_tpu_torch.priors.diffusivity\n"
+        "import gab1_shp2_tpu_torch.priors.literature\n"
+        "import gab1_shp2_tpu_torch.inference.diagnostics\n"
+        "import gab1_shp2_tpu_torch.inference.loss\n"
+        "import gab1_shp2_tpu_torch.inference.map_fit\n"
+        "import gab1_shp2_tpu_torch.inference.nuts\n"
+        "import gab1_shp2_tpu_torch.inference.surrogate\n"
+        "import gab1_shp2_tpu_torch.tools.dual_timing\n"
+        "gab1_shp2_tpu_torch.inference.loss.prior_box()\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'gab1_shp2_tpu' or m.startswith('gab1_shp2_tpu.')]\n"
