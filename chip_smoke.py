@@ -59,7 +59,20 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      likelihood at the draws, importance reweighting, split R-hat, ESS
      and divergences); no kernel of its own (the JAX package computes
      this path with no Pallas kernel);
-  8. one JSON line describing every ported kernel.
+  8. the workload drivers (gab1_shp2_tpu_torch.workloads), each through
+     its main() with --outdir a temporary directory (DRIVER_ARGS lists
+     their command lines and the cuts): run_base_model at --n 1000, then
+     at a small configuration on the card and on the CPU (the CSVs agree
+     within 1e-8); pulse_chase (RMSE against the reaction-only ODE trace
+     below 20); run_variants --variant hela; length_scales;
+     calc_rxn_rates; gsa_driver --target dk --samples 65; fit_and_infer's
+     NUTS stage on the committed surrogate with its exact reweighting and
+     16 predictive draws; plot_parameter_distributions where matplotlib
+     is installed (without it the figure helpers record what they would
+     draw).  Every ensemble, evaluator and observable call is checked to
+     run on the card, and a member lost fails the phase; no kernel of its
+     own (no driver reaches a Pallas kernel in the JAX package);
+  9. one JSON line describing every ported kernel.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  It needs no network and imports no
@@ -112,6 +125,37 @@ MAP_ARGS = dict(n_starts=2, n_local=1, max_iters=1, dr_coarse=0.2,
 # Chebyshev nodes per axis: 4^4 = 256 solves (the workload: 17^4 = 83,521)
 SUR_GRID = 4
 NUTS_RUN = dict(chains=4, warmup=60, samples=50, max_depth=6, seed=0)
+# phase 8: each workload driver's command line (its main(argv) with
+# --outdir a temporary directory), at the driver's defaults except:
+# run_base_model at --n 1000, the reference's lowest ensemble size (the
+# driver's default is 200); gsa_driver at 65 samples a parameter (the
+# reference's 1000; 65 is the least eFAST takes with 4 harmonics);
+# fit_and_infer's NUTS stage on the committed 17^4 surrogate (rebuilding it
+# is 83,521 solves), 4 chains x (300 warmup + 200 draws) instead of 5 x
+# (500 + 1000), and 16 predictive draws instead of 500.  Its chains run on
+# the card (the driver's default), and its 800 exact reweighting solves go
+# in one batch (--chunk 1024).  The draws:
+# the driver exits 1 when split R-hat exceeds 1.05, and in CPU runs of the
+# port over seeds 0-7, 4 x 50 draws passed 3 of 8 (300 warmup) and 4 of 8
+# (500 warmup), 4 x 100 passed 7 of 8, 4 x 200 all 8
+DRIVER_ARGS = {
+    "run_base_model": ["--n", "1000"],
+    "pulse_chase": [],
+    "run_variants": ["--variant", "hela"],
+    "length_scales": [],
+    "calc_rxn_rates": [],
+    "gsa_driver": ["--target", "dk", "--samples", "65"],
+    "fit_and_infer": ["--stage", "nuts", "--likelihood", "surrogate",
+                      "--chains", "4", "--warmup", "300", "--samples", "200",
+                      "--predictive", "16", "--chunk", "1024"],
+    "plot_parameter_distributions": [],
+}
+# run_base_model at a small configuration, on the card and on the host's
+# CPU; the two pct_shp2_bound_gab1.csv rows agree within phase 7's
+# card-against-CPU limit for pct_shp2_bound_gab1
+DRIVER_SMALL = ["--n", "8", "--dr", "0.5", "--nts", "4", "--rtol", "1e-3",
+                "--linsolve", "none"]
+DRIVER_SMALL_RTOL = 1e-8
 
 
 def log(msg):
@@ -997,6 +1041,246 @@ def phase7(g, dev):
     return read
 
 
+def _csv_rows(path):
+    import csv
+
+    with open(path) as fh:
+        return list(csv.reader(fh))
+
+
+def _finite_csv(path, n_rows=None, skip_cols=1):
+    """A driver's CSV as an array, checked finite, with ``n_rows`` rows
+    (at least one when ``None``)."""
+    rows = _csv_rows(path)[1:]
+    vals = np.asarray([r[skip_cols:] for r in rows], float)
+    if (len(rows) != (n_rows or max(1, len(rows)))
+            or not np.isfinite(vals).all()):
+        raise RuntimeError(f"{path}: {len(rows)} rows (want {n_rows}), "
+                           f"finite {bool(np.isfinite(vals).all())}")
+    return vals
+
+
+def phase8(dev):
+    """The workload drivers, each through its main() on ``dev`` with
+    --outdir a temporary directory; returns each driver's wall in s.
+
+    Every run_ensemble call a driver makes, every GSA evaluator and every
+    batched observable of fit_and_infer is checked to take ``dev`` and
+    counted (fit_and_infer's chains are checked to run on ``dev`` too): a member whose solve failed is lost, and a lost member fails
+    the phase.  Without matplotlib the figure helpers are replaced by
+    recorders of what they would draw."""
+    import contextlib
+    import importlib
+    import importlib.util
+    import io
+    import os
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from gab1_shp2_tpu_torch.workloads import common
+
+    mods = {n: importlib.import_module(f"gab1_shp2_tpu_torch.workloads.{n}")
+            for n in DRIVER_ARGS}
+    flags = [] if dev.type == "cuda" else ["--cpu"]
+    # the device of the driver running now: dev, or the CPU for a --cpu run
+    tally = dict(members=0, lost=0, dev=dev)
+    walls = {}
+
+    def on_dev(kw, what):
+        if torch.device(kw["device"]).type != tally["dev"].type:
+            raise RuntimeError(f"{what} was given device {kw['device']}, "
+                               f"not {tally['dev']}")
+
+    def guard_ensemble(fn):
+        def run(*a, **kw):
+            on_dev(kw, "run_ensemble")
+            out, ok = fn(*a, **kw)
+            if ok.device.type != tally["dev"].type:
+                raise RuntimeError("run_ensemble ran off the device")
+            tally["members"] += ok.numel()
+            tally["lost"] += int((~ok).sum())
+            return out, ok
+        return run
+
+    def guard_factory(fn, failed):
+        """A GSA evaluator or batched-observable factory whose function
+        counts its failures: rows of zeros, or NaN."""
+        def make(*a, **kw):
+            on_dev(kw, fn.__name__)
+            inner = fn(*a, **kw)
+
+            def call(X):
+                y = inner(X)
+                tally["members"] += len(y)
+                tally["lost"] += int(failed(y).sum())
+                return y
+            return call
+        return make
+
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    drawn = []
+
+    def recorder(name):
+        def record(path, *a, **k):
+            shapes = [tuple(np.shape(x)) for x in (*a, *k.values())
+                      if isinstance(x, np.ndarray)]
+            drawn.append(f"{name}({os.path.basename(str(path))}, {shapes})")
+        return record
+
+    with contextlib.ExitStack() as stack, \
+            tempfile.TemporaryDirectory() as tmp:
+        for mod in (common, *mods.values()):
+            if hasattr(mod, "run_ensemble"):
+                stack.enter_context(mock.patch.object(
+                    mod, "run_ensemble", guard_ensemble(mod.run_ensemble)))
+        gsa = mods["gsa_driver"]
+        for name in ("make_param_evaluator", "make_conc_evaluator"):
+            stack.enter_context(mock.patch.object(gsa, name, guard_factory(
+                getattr(gsa, name), lambda y: np.abs(y).sum(axis=-1) == 0)))
+        fi = mods["fit_and_infer"]
+        stack.enter_context(mock.patch.object(
+            fi, "make_batch_observable",
+            guard_factory(fi.make_batch_observable,
+                          lambda y: ~np.isfinite(y))))
+        nuts_device = fi._nuts_device
+
+        def chains_on_dev(args):
+            ndev = nuts_device(args)
+            on_dev({"device": ndev}, "the NUTS chains")
+            return ndev
+        stack.enter_context(mock.patch.object(fi, "_nuts_device",
+                                              chains_on_dev))
+        if not mpl:
+            log("  matplotlib is not installed on this host: no figure is "
+                "drawn; the drivers' figure helpers record the path and the "
+                "array shapes of each figure instead")
+            for name in ("save_surface_plot", "save_line_plot",
+                         "save_bar_comparison", "save_rotated_chase_surface"):
+                stack.enter_context(mock.patch.object(common, name,
+                                                      recorder(name)))
+            stack.enter_context(mock.patch.object(
+                gsa, "save_heatmaps",
+                lambda outdir, tag, *a: recorder("save_heatmaps")(
+                    f"{tag}_heatmap.png", *a)))
+
+        def run(label, module, argv, sub):
+            out = os.path.join(tmp, sub)
+            os.makedirs(out, exist_ok=True)
+            argv = argv + flags
+            tally.update(members=0, lost=0, dev=torch.device(
+                "cpu" if "--cpu" in argv else dev.type))
+            drawn.clear()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    mods[module].main(argv + ["--outdir", out])
+            finally:
+                # the driver's own lines, also when it fails
+                for line in buf.getvalue().splitlines():
+                    log(f"    | {line}")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            if drawn:
+                log(f"    figures not drawn ({len(drawn)}): "
+                    + "; ".join(drawn))
+            log(f"  {label} {' '.join(argv)}: {walls[label]:.1f} s, "
+                f"{tally['members']} solves, {tally['lost']} lost")
+            if tally["lost"]:
+                raise RuntimeError(f"{label}: {tally['lost']} members lost")
+            return out, buf.getvalue()
+
+        # run_base_model at --n 1000, then at a small configuration on the
+        # card and on the CPU
+        out, _ = run("run_base_model", "run_base_model",
+                     DRIVER_ARGS["run_base_model"], "rbm")
+        q = _finite_csv(f"{out}/pct_shp2_bound_gab1.csv", 1, 0)[0]
+        if not 0 < q[1] < 100:
+            raise RuntimeError(f"run_base_model: median {q[1]} % bound")
+        rows = []
+        for sub, extra in (("small", []), ("small_cpu", ["--cpu"])):
+            out, _ = run(f"run_base_model ({sub})", "run_base_model",
+                         DRIVER_SMALL + extra, sub)
+            rows.append(_finite_csv(f"{out}/pct_shp2_bound_gab1.csv", 1,
+                                    0)[0])
+        err = float(np.max(np.abs(rows[0] - rows[1]) / np.abs(rows[1])))
+        log(f"  run_base_model small, {dev.type} against the CPU: "
+            + ", ".join(f"{a:.12g}/{b:.12g}" for a, b in zip(*rows))
+            + f": max rel {err:.3e} (limit {DRIVER_SMALL_RTOL:g})")
+        if not err <= DRIVER_SMALL_RTOL:
+            raise RuntimeError("run_base_model: card and CPU disagree")
+
+        out, _ = run("pulse_chase", "pulse_chase", DRIVER_ARGS["pulse_chase"],
+                     "pc")
+        pc = _finite_csv(f"{out}/pulse_chase_vs_ode.csv", 30, 0)
+        rmse = float(np.sqrt(np.mean((pc[:, 1] - pc[:, 2]) ** 2)))
+        log(f"  pulse_chase: pE median against the reaction-only ODE trace, "
+            f"RMSE {rmse:.3f} percent points (limit 20)")
+        if not rmse < 20.0:
+            raise RuntimeError("pulse_chase: RMSE against the trace")
+
+        out, _ = run("run_variants", "run_variants",
+                     DRIVER_ARGS["run_variants"], "hela")
+        _finite_csv(f"{out}/hela_vs_base_PG1Stot.csv", None, 0)
+        _finite_csv(f"{out}/hela_cs_ratio_bf.csv", 1, 0)
+
+        out, _ = run("length_scales", "length_scales",
+                     DRIVER_ARGS["length_scales"], "ls")
+        _finite_csv(f"{out}/length_scales_R100.csv", 18)
+        out, _ = run("calc_rxn_rates", "calc_rxn_rates",
+                     DRIVER_ARGS["calc_rxn_rates"], "rates")
+        _finite_csv(f"{out}/rxn_rate_quantiles.csv", 6)
+
+        log("  gsa_driver: samples cut from 1000 to 65 a parameter (the "
+            "least eFAST takes with 4 harmonics): 24 x 65 = 1560 solves")
+        out, _ = run("gsa_driver", "gsa_driver", DRIVER_ARGS["gsa_driver"],
+                     "gsa")
+        for label in ("S1", "ST"):
+            _finite_csv(f"{out}/eFAST_dk_65spls_{label}.csv", 24)
+
+        inf = os.path.join(tmp, "fit")
+        os.makedirs(inf)
+        here = os.path.dirname(os.path.abspath(__file__))
+        for name in ("surrogate_n17.npz", "fitted_parameters.csv"):
+            shutil.copy(os.path.join(here, "results", "inference", name), inf)
+        out, text = run("fit_and_infer", "fit_and_infer",
+                        DRIVER_ARGS["fit_and_infer"], "fit")
+        diag = {r[0]: r[1:] for r in _csv_rows(f"{out}/nuts_diagnostics.csv")}
+        fa = DRIVER_ARGS["fit_and_infer"]
+        n_draws = (int(fa[fa.index("--chains") + 1])
+                   * int(fa[fa.index("--samples") + 1]))
+        post = _finite_csv(f"{out}/posterior_samples.csv", n_draws, 0)
+        ess = _finite_csv(f"{out}/posterior_ess.csv", 1, 0)[0]
+        _finite_csv(f"{out}/posterior_quantiles.csv", 4)
+        _finite_csv(f"{out}/predictive_checks.csv", 2)
+        log(f"  fit_and_infer: chain health ok={diag['_ok'][0]}, divergence "
+            f"rate {float(diag['_divergence_rate'][0]):.3f}, split R-hat "
+            + ", ".join(f"{n}={float(diag[n][0]):.3f}" for n in
+                        ("kG1p", "kG1dp", "kSa", "kSi"))
+            + ", ESS " + ", ".join(f"{n}={float(diag[n][1]):.0f}" for n in
+                                   ("kG1p", "kG1dp", "kSa", "kSi"))
+            + f"; importance ESS {ess[1]:.1f} / {int(ess[0])}; "
+            f"weights sum {post[:, 4].sum():.6f}")
+        if not ("NUTS health: ok" in text and diag["_ok"][0] == "1"
+                and "exact-solve failures: 0" in text
+                and ess[1] >= 1.0 and abs(post[:, 4].sum() - 1) < 1e-9):
+            raise RuntimeError("fit_and_infer: the NUTS stage is off")
+
+        if mpl:
+            out, _ = run("plot_parameter_distributions",
+                         "plot_parameter_distributions",
+                         DRIVER_ARGS["plot_parameter_distributions"], "ppd")
+            _finite_csv(f"{out}/parameter_ensemble.csv", 5000, 0)
+        else:
+            log("  plot_parameter_distributions: not run (it draws its "
+                "figure itself and matplotlib is not installed; its CSV "
+                "needs no device)")
+    return walls
+
+
 def main():
     import torch
 
@@ -1075,7 +1359,12 @@ def main():
     inf = phase7(g, dev)
     log(f"phase 7 wall {time.perf_counter() - t:.1f} s")
 
-    log("phase 8: kernels")
+    t = time.perf_counter()
+    log("phase 8: the workload drivers, each through its main() on the card")
+    walls = phase8(dev)
+    log(f"phase 8 wall {time.perf_counter() - t:.1f} s")
+
+    log("phase 9: kernels")
     kernels = [dict(
         name="ros23_step_fused", route="cuda",
         source="gab1_shp2_tpu_torch/csrc/ros23_step.cu",
@@ -1114,6 +1403,8 @@ def main():
         f"explicit {sps5:.2f}")
     log("inference path, wall s (first readings): " + ", ".join(
         f"{k} {v:.2f}" for k, v in inf.items()))
+    log("workload drivers, wall s (first readings): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()))
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -151,8 +151,12 @@ def run_ensemble(
         if scheduler != "sorted":
             raise ValueError(f"unknown scheduler {scheduler!r}")
 
-        def chunk_solver(p: Params):
-            sol, stats = solve_stiff_batch(system, Co, p, device=dev,
+        def chunk_solver(idx):
+            # a per-member Co (N, 5) gives each chunk its own rows; the
+            # JAX package hands every chunk the whole array and raises
+            co = Co if Co.ndim == 1 or idx is None else Co[idx]
+            p = pb if idx is None else _take(pb, idx)
+            sol, stats = solve_stiff_batch(system, co, p, device=dev,
                                            return_stats=True,
                                            jac_reuse=jac_reuse, **kw)
             out = _extract_members(extract, sol)
@@ -161,7 +165,7 @@ def run_ensemble(
             return out, ok, stats.n_accepted + stats.n_rejected
 
         if chunk is None or chunk >= N:
-            return chunk_solver(pb)[:2]
+            return chunk_solver(None)[:2]
         return _run_stiff_cost_sorted(chunk_solver, pb, N, int(chunk),
                                       sort=not jac_reuse)
 
@@ -190,8 +194,10 @@ def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, dev,
                       kw):
     """Dispatch the stiff ensemble through the lane-refill scheduler: one
     ``solve_stiff_refill`` call per ``refill_group`` members (default
-    4096) over ``chunk`` lanes (default 256)."""
-    lanes = int(chunk) if chunk is not None else 256
+    4096) over ``chunk`` lanes (default 256), and no more lanes than
+    members: eager operations pay for every lane, an idle one too (the
+    JAX package keeps ``chunk`` lanes, the idle ones masked)."""
+    lanes = min(int(chunk) if chunk is not None else 256, N)
     group = max(int(refill_group) if refill_group is not None else 4096,
                 lanes)
     co_shared = Co.ndim == 1
@@ -206,7 +212,8 @@ def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, dev,
 
 
 def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):
-    """Chunked stiff dispatch with pilot-fit cost-sorted scheduling.
+    """Chunked stiff dispatch with pilot-fit cost-sorted scheduling;
+    ``chunk_solver`` takes the member indices of one chunk.
 
     A batched adaptive integration runs until its slowest lane finishes,
     so a chunk costs its max-step member.  No fixed stiffness proxy
@@ -220,7 +227,7 @@ def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):
     original in-order chunking there.
     """
     pilot_idx = np.arange(chunk)
-    out_p, ok_p, steps_p = chunk_solver(_take(pb, pilot_idx))
+    out_p, ok_p, steps_p = chunk_solver(pilot_idx)
 
     rest = np.arange(chunk, N)
     if sort and rest.size:
@@ -242,7 +249,7 @@ def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):
     sched = np.concatenate([order, np.repeat(order[-1:], pad)])
     outs = [(out_p, ok_p)]
     for s in range(chunk, len(sched), chunk):
-        o, k, _ = chunk_solver(_take(pb, sched[s:s + chunk]))
+        o, k, _ = chunk_solver(sched[s:s + chunk])
         outs.append((o, k))
     # rows 0..N-1 of the concatenation hold members order[0..N-1] (pad
     # duplicates sit past N); invert the permutation

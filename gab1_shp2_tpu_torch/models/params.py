@@ -13,12 +13,20 @@ the CUDA card and raises when there is none (see :func:`resolve_device`).
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import math
+from typing import Tuple
+
 import numpy as np
 import torch
 
-from gab1_shp2_tpu_torch.models.species import DIFF_NAMES, K_NAMES
+from gab1_shp2_tpu_torch.models.species import (
+    CO_NAMES,
+    DIFF_NAMES,
+    K_NAMES,
+    PNAMES,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -139,6 +147,7 @@ MAP_FIT = {
     "kSi": 0.09499999999999997,
 }
 
+FITTED_PARAM_NAMES = ("kG1p", "kG1dp", "kSa", "kSi")
 
 # The single experimental fit datum: % SHP2-bound GAB1 at 5 min EGF
 # (Julia/exptl_pct_SHP2-bound-GAB1.csv).
@@ -215,3 +224,28 @@ def stability_dt(params: Params, dr: float) -> torch.Tensor:
     ``dt = 0.99 / (2 (max(D)/dr^2 + sum(k)/4))`` (``basepdesolver.jl:30``)."""
     return 0.99 / (2.0 * (torch.amax(params.D, dim=-1) / dr**2
                           + torch.sum(params.k, dim=-1) / 4.0))
+
+
+def param_names() -> Tuple[str, ...]:
+    return PNAMES
+
+
+def co_names() -> Tuple[str, ...]:
+    return CO_NAMES
+
+
+def load_ensemble_csv(path: str) -> np.ndarray:
+    """Load a (N, 24) parameter-ensemble CSV in reference column order
+    (``Julia/parameter_ensemble.csv`` header = PNAMES).  Columns are
+    picked by their header names, so a file with its columns in another
+    order (or with extra columns) loads the same."""
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    header = [h.strip() for h in rows[0]]
+    missing = [n for n in PNAMES if n not in header]
+    if missing:
+        raise KeyError(f"{path}: no column(s) {missing}")
+    cols = [header.index(n) for n in PNAMES]
+    body = [r for r in rows[1:] if r]
+    return np.array([[float(r[c]) for c in cols] for r in body],
+                    dtype=np.float64).reshape(len(body), len(PNAMES))

@@ -172,3 +172,24 @@ def test_argument_errors():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tg.run_ensemble(tg.base_system(), tg.default_co(device="cpu"),
                             batch, **FAST)
+
+
+def test_sorted_chunks_take_their_rows_of_a_per_member_co():
+    """``scheduler="sorted"`` with ``chunk < N`` and a per-member ``Co``
+    of shape (N, 5): each chunk solves with its own members' rows.  The
+    JAX package raises on this input (it hands every chunk the whole
+    ``Co``), so the reference is its unchunked call, which accepts it."""
+    batch = _batch(4)
+    co = np.asarray(jg.default_co())[None, :] * np.array(
+        [1.0, 0.5, 2.0, 1.5])[:, None]
+    kw = dict(solver="stiff", dr=1.0, tf=0.3, Nts=2, rtol=1e-4, atol=1e-7)
+    want, ok_j = j_run(jg.base_system(), jnp.asarray(co), jnp.asarray(batch),
+                       scheduler="sorted", **kw)
+    got, ok_t = tg.run_ensemble(tg.base_system(), torch.as_tensor(co),
+                                batch, device="cpu", scheduler="sorted",
+                                chunk=2, **kw)
+    assert bool(ok_t.all()) and bool(np.asarray(ok_j).all())
+    np.testing.assert_allclose(got.C.numpy(), np.asarray(want.C),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(got.C[0, -1, 0, :3].numpy(),
+                               np.asarray(want.C)[0, -1, 0, :3], rtol=1e-12)

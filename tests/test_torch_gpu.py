@@ -450,3 +450,51 @@ def test_nuts_on_a_surrogate_on_the_card(cuda):
     rep = check_chains(qs.cpu().numpy(), info["diverged"].cpu().numpy(),
                        names=tl.FIT_NAMES)
     assert rep["ok"], rep["failures"]
+
+
+# --- the workload drivers ---------------------------------------------------
+
+def _no_figures(monkeypatch):
+    """Replace the drivers' figure helpers (matplotlib may be absent on
+    the card's host); the CSVs are what these tests compare."""
+    from gab1_shp2_tpu_torch.workloads import common
+
+    for name in ("save_surface_plot", "save_line_plot",
+                 "save_bar_comparison", "save_rotated_chase_surface"):
+        monkeypatch.setattr(common, name, lambda *a, **k: None)
+
+
+def test_run_base_model_on_the_card(cuda, tmp_path, monkeypatch):
+    """run_base_model.main at a tiny configuration on the card and on the
+    CPU (--linsolve none, float64): the pct_shp2_bound_gab1.csv rows agree
+    within 1e-8 relative."""
+    import csv
+
+    from gab1_shp2_tpu_torch.workloads import run_base_model
+
+    _no_figures(monkeypatch)
+    argv = ["--n", "4", "--dr", "0.5", "--nts", "4", "--rtol", "1e-3",
+            "--linsolve", "none"]
+    rows = []
+    for flags, sub in (([], "card"), (["--cpu"], "cpu")):
+        out = str(tmp_path / sub)
+        run_base_model.main(argv + flags + ["--outdir", out])
+        with open(f"{out}/pct_shp2_bound_gab1.csv") as fh:
+            rows.append([float(v) for v in list(csv.reader(fh))[1]])
+    card, cpu = np.asarray(rows[0]), np.asarray(rows[1])
+    assert 0 < card[1] < 100
+    np.testing.assert_allclose(card, cpu, rtol=1e-8)
+
+
+def test_get_ensemble_same_on_both(cuda):
+    """The drivers' ensemble is drawn on the host; it reaches the card's
+    solves as the same float64 values."""
+    from gab1_shp2_tpu_torch.workloads import common
+
+    ens = common.get_ensemble(16, seed=3)
+    np.testing.assert_array_equal(ens, common.get_ensemble(16, seed=3))
+    on_card = tg.Params.unpack(torch.as_tensor(ens, device=cuda))
+    on_cpu = tg.Params.unpack(torch.as_tensor(ens))
+    assert on_card.k.device.type == "cuda"
+    assert torch.equal(on_card.pack().cpu(), on_cpu.pack())
+    np.testing.assert_array_equal(on_card.pack().cpu().numpy(), ens)

@@ -142,7 +142,8 @@ def test_default_device_raises_without_card():
 
 def test_import_pulls_in_no_jax():
     """Importing every port module in a fresh interpreter leaves neither
-    jax nor the JAX package in sys.modules."""
+    jax nor the JAX package in sys.modules, nor pandas or matplotlib
+    (the drivers import matplotlib inside their plot helpers only)."""
     code = (
         "import sys\n"
         "import gab1_shp2_tpu_torch\n"
@@ -172,10 +173,24 @@ def test_import_pulls_in_no_jax():
         "import gab1_shp2_tpu_torch.inference.nuts\n"
         "import gab1_shp2_tpu_torch.inference.surrogate\n"
         "import gab1_shp2_tpu_torch.tools.dual_timing\n"
+        "import gab1_shp2_tpu_torch.priors.posteriors\n"
+        "import gab1_shp2_tpu_torch.utils.cache\n"
+        "import gab1_shp2_tpu_torch.utils.stats\n"
+        "import gab1_shp2_tpu_torch.workloads.common\n"
+        "import gab1_shp2_tpu_torch.workloads.run_base_model\n"
+        "import gab1_shp2_tpu_torch.workloads.pulse_chase\n"
+        "import gab1_shp2_tpu_torch.workloads.length_scales\n"
+        "import gab1_shp2_tpu_torch.workloads.calc_rxn_rates\n"
+        "import gab1_shp2_tpu_torch.workloads.run_variants\n"
+        "import gab1_shp2_tpu_torch.workloads.plot_parameter_distributions\n"
+        "import gab1_shp2_tpu_torch.workloads.gsa_driver\n"
+        "import gab1_shp2_tpu_torch.workloads.fit_and_infer\n"
         "gab1_shp2_tpu_torch.inference.loss.prior_box()\n"
+        "gab1_shp2_tpu_torch.workloads.common.get_ensemble(3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'gab1_shp2_tpu' or m.startswith('gab1_shp2_tpu.')]\n"
+        "bad += [m for m in ('pandas', 'matplotlib') if m in sys.modules]\n"
         "assert 'gab1_shp2_tpu_torch' in sys.modules\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

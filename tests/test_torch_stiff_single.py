@@ -48,13 +48,16 @@ torch.set_num_threads(2)
 
 KW = dict(dr=1.0, tf=0.5, Nts=2, rtol=1e-5, atol=1e-8)
 
-# case -> (method, extra keyword arguments)
+# case -> (method, extra keyword arguments, system)
 CASES = {
-    "trbdf2": ("trbdf2", {}),
-    "rosenbrock23": ("rosenbrock23", {}),
-    "rodas3": ("rodas3", {}),
-    "rodas4": ("rodas4", {}),
-    "rodas4_prechase": ("rodas4", dict(t_prechase=0.25)),
+    "trbdf2": ("trbdf2", {}, "base_system"),
+    "rosenbrock23": ("rosenbrock23", {}, "base_system"),
+    "rodas3": ("rodas3", {}, "base_system"),
+    "rodas4": ("rodas4", {}, "base_system"),
+    "rodas4_prechase": ("rodas4", dict(t_prechase=0.25), "base_system"),
+    # the geometries run_variants compares with the base system
+    "rect_rodas4": ("rodas4", {}, "rect_system"),
+    "memb_sfk_trbdf2": ("trbdf2", {}, "memb_sfk_system"),
 }
 
 
@@ -204,8 +207,8 @@ def test_block_jacobian_lanes(jac_case):
 @pytest.fixture(scope="module")
 def jax_solves():
     out = {}
-    for case, (method, extra) in CASES.items():
-        sol, st = j_solve(jg.base_system(), jg.default_co(),
+    for case, (method, extra, system) in CASES.items():
+        sol, st = j_solve(getattr(jg, system)(), jg.default_co(),
                           jg.default_params(), method=method,
                           return_stats=True, **KW, **extra)
         out[case] = (np.asarray(sol.C), np.asarray(sol.m),
@@ -215,9 +218,9 @@ def jax_solves():
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_solve_stiff_matches_jax(jax_solves, case):
-    method, extra = CASES[case]
+    method, extra, system = CASES[case]
     Cj, mj, naj, nrj, fj = jax_solves[case]
-    sol, st = t_solve(tg.base_system(), tg.default_co(device="cpu"),
+    sol, st = t_solve(getattr(tg, system)(), tg.default_co(device="cpu"),
                       tg.default_params(device="cpu"), device="cpu",
                       method=method, return_stats=True, **KW, **extra)
     assert int(st.n_accepted) == naj
