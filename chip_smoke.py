@@ -72,7 +72,23 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      draw).  Every ensemble, evaluator and observable call is checked to
      run on the card, and a member lost fails the phase; no kernel of its
      own (no driver reaches a Pallas kernel in the JAX package);
-  9. one JSON line describing every ported kernel.
+  9. the mesh, the mixed RHS, imaging and the trace: (a) run_ensemble
+     sharded over a mesh of two slots of the card (two worker threads,
+     each its own refill queue) on phase 3's N=1024 ensemble, against
+     phase 3; (b) the sorted scheduler sharded (N=256, super-chunks of
+     2 x 64) against the unsharded sorted run in chunks of 64; (c)
+     run_sharded_batch of the fused Rosenbrock23 path (B=256), kernel B1
+     launched from the worker threads, launch counts reset just before
+     and read just after, against the unsharded batch (and over every
+     card where there are several); (d) the north star (f64 state, f32
+     linear algebra, RODAS4 at rtol 1e-6, 256 members, lane refill) with
+     rhs_mixed False, "df32" and True, member 0 against the f64
+     reference, df32 against native f64; (e) PLA puncta counts and cell
+     labels of a synthetic 8 x 1024^2 plate on the card and on the CPU,
+     equal; (f) a torch.profiler trace of a refill group holding CUDA
+     kernel events; no kernel of its own (the JAX package reaches no
+     Pallas kernel on these paths);
+ 10. one JSON line describing every ported kernel.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  It needs no network and imports no
@@ -156,6 +172,28 @@ DRIVER_ARGS = {
 DRIVER_SMALL = ["--n", "8", "--dr", "0.5", "--nts", "4", "--rtol", "1e-3",
                 "--linsolve", "none"]
 DRIVER_SMALL_RTOL = 1e-8
+# phase 9: the mesh, the mixed RHS, imaging.  f32 parity of a sharded run
+# against the single-device one: per-member results do not depend on the
+# sharding, but f32 reductions may follow a batch's width (relative 2e-3
+# against phase 3's refill, the f32 parity bound; the JAX test's rtol
+# 5e-5, atol 1e-8 where both runs solve batches of the same width)
+SHARD_REL = 2e-3
+SHARD_RTOL, SHARD_ATOL = 5e-5, 1e-8
+SORTED_RUN = dict(n=256, chunk=64)
+FUSED_MESH_B = 256
+# the north star (bench.py): f64 state, f32 linear algebra, RODAS4 at rtol
+# 1e-6 under the lane refill, 256 members; the gates of
+# tests/test_df32.py::TestDf32StiffPath for "df32" against native f64
+NORTH_STAR = dict(dr=0.2, tf=5.0, Nts=2, rtol=1e-6, atol=1e-9)
+NORTH_STAR_N = 256
+DF32_STEPS, DF32_REL = 2, 2e-5
+ACCURACY_LIMIT = 1e-3
+# the synthetic imaging plate: 8 images of 1024^2 pixels, 9 disk cells an
+# image with puncta inside them, spots on a sloped background
+PLATE = dict(n=8, H=1024, seed=0)
+# the traced refill group: its first steps only (every eager operation is
+# a few events; a whole solve's trace runs to hundreds of MB)
+TRACE_RUN = dict(n=16, tf=0.005)
 
 
 def log(msg):
@@ -603,7 +641,7 @@ def phase3(g, batch, dev, Cref):
         f"{relerr:.3e}")
     if not relerr <= 1e-3:
         raise RuntimeError("the refill headline is off the f64 reference")
-    return N / wall
+    return dict(sps=N / wall, wall=wall, out=out, ok=ok)
 
 
 def _rel_norm(a, b):
@@ -1281,6 +1319,301 @@ def phase8(dev):
     return walls
 
 
+def _relc(a, b, floor):
+    """max |a - b| / (|b| + floor) in float64."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (b.abs() + floor)).max())
+
+
+def phase9_mesh(g, batch, dev, p3):
+    """(a) the sharded refill at the bench configuration over two slots of
+    the card; (b) the sorted scheduler sharded; (c) run_sharded_batch of the
+    fused Rosenbrock23 path, kernel B1 launched from the worker threads."""
+    import torch
+    from gab1_shp2_tpu_torch.models.observables import gsa_outputs
+    from gab1_shp2_tpu_torch.ops import ros23_cuda
+    from gab1_shp2_tpu_torch.parallel.mesh import (
+        ensemble_mesh,
+        run_sharded_batch,
+    )
+
+    system = g.base_system()
+    Co32 = g.default_co(dtype=torch.float32, device=dev)
+    pb = g.Params.unpack(torch.as_tensor(batch, dtype=torch.float32,
+                                         device=dev))
+    two_slots = ensemble_mesh(["cuda:0", "cuda:0"])
+    walls = {}
+
+    # (a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ok = g.run_ensemble(system, Co32, pb, extract=_final_C,
+                             method="rodas4", chunk=CHUNK,
+                             scheduler="refill", device_axis="ensemble",
+                             mesh=two_slots, **CFG)
+    torch.cuda.synchronize()
+    walls["sharded_refill"] = time.perf_counter() - t0
+    lost = int((~ok).sum())
+    rel = _relc(out, p3["out"], 1e-8)
+    log(f"  (a) sharded refill over 2 slots of cuda:0, {N} members, "
+        f"{CHUNK} lanes a slot: {walls['sharded_refill']:.3f} s "
+        f"({N / walls['sharded_refill']:.2f} solves/s; phase 3 unsharded "
+        f"{p3['wall']:.3f} s); {lost} lost; max rel diff from phase 3 "
+        f"{rel:.3e}; outputs on {out.device}")
+    if out.shape[0] != N or lost:
+        raise RuntimeError(f"the sharded refill lost {lost} members")
+    if not torch.equal(ok, p3["ok"]):
+        raise RuntimeError("the sharded refill's ok mask differs")
+    if not rel <= SHARD_REL:
+        raise RuntimeError("the sharded refill is off phase 3's result")
+    if out.device != two_slots.devices[0]:
+        raise RuntimeError(f"outputs gathered on {out.device}")
+
+    # (b) against the unsharded sorted run in chunks of the same width: a
+    # member's steps do not depend on its chunk, and at equal widths its
+    # f32 arithmetic does not either (against one chunk of n, 4.1e-5 of
+    # the 5e-5 bound on an H100)
+    n, chunk = SORTED_RUN["n"], SORTED_RUN["chunk"]
+    kw = dict(extract=_final_C, method="rodas4", scheduler="sorted",
+              chunk=chunk, **CFG)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, oka = g.run_ensemble(system, Co32, pb.k.new_tensor(batch[:n]),
+                            device=dev, **kw)
+    torch.cuda.synchronize()
+    walls["sorted_unsharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b, okb = g.run_ensemble(system, Co32, pb.k.new_tensor(batch[:n]),
+                            device_axis="ensemble", mesh=two_slots, **kw)
+    torch.cuda.synchronize()
+    walls["sorted_sharded"] = time.perf_counter() - t0
+    bad = int(((a - b).abs() > SHARD_ATOL + SHARD_RTOL * a.abs()).sum())
+    log(f"  (b) sorted, {n} members in super-chunks of 2 x {chunk}: sharded "
+        f"{walls['sorted_sharded']:.3f} s, unsharded in chunks of {chunk} "
+        f"{walls['sorted_unsharded']:.3f} s; {int((~okb).sum())} lost; max "
+        f"rel diff {_relc(b, a, 1e-8):.3e}; {bad} entries beyond rtol "
+        f"{SHARD_RTOL:g}")
+    if not (bool(okb.all()) and torch.equal(oka, okb)) or bad:
+        raise RuntimeError("the sharded sorted run disagrees")
+
+    # (c)
+    kw = dict(dr=CFG["dr"], tf=CFG["tf"], Nts=CFG["Nts"], rtol=CFG["rtol"],
+              atol=CFG["atol"], method="rosenbrock23", step_impl="fused",
+              return_stats=True)
+    packed = pb.k.new_tensor(batch[:FUSED_MESH_B])
+
+    def local(shard):
+        sol, st = g.solve_stiff_batch(system, Co32.to(shard.device),
+                                      g.Params.unpack(shard),
+                                      device=shard.device, **kw)
+        return gsa_outputs(sol, 10.0), st.n_accepted + st.n_rejected, \
+            st.failed
+
+    meshes = [("2 slots of cuda:0", two_slots)]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"all {torch.cuda.device_count()} cards",
+                       ensemble_mesh()))
+    else:
+        log("  (c) one card: the mesh over every card is not run")
+    ref, _, ref_failed = local(packed)
+    launches = None
+    for name, mesh in meshes:
+        torch.cuda.synchronize()
+        ros23_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        o, steps, failed = run_sharded_batch(local, packed, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = ros23_cuda.LAUNCHES
+        m = FUSED_MESH_B // mesh.size
+        want = sum(int(steps[i * m:(i + 1) * m].max())
+                   for i in range(mesh.size))
+        bad = int(((o - ref).abs() > SHARD_ATOL + SHARD_RTOL
+                   * ref.abs()).sum())
+        log(f"  (c) fused rosenbrock23 through run_sharded_batch over {name},"
+            f" B={FUSED_MESH_B}: {wall:.3f} s; {n_launch} kernel launches "
+            f"from the worker threads ({want} slot loop steps); GSA outputs "
+            f"max rel diff from the unsharded batch {_relc(o, ref, 1e-8):.3e}"
+            f", {bad} beyond rtol {SHARD_RTOL:g}")
+        if bool(failed.any()) or bool(ref_failed.any()):
+            raise RuntimeError("the fused mesh run lost members")
+        if n_launch == 0 or n_launch != want:
+            raise RuntimeError(f"{n_launch} launches for {want} loop steps")
+        if bad:
+            raise RuntimeError("the fused mesh run disagrees")
+        if launches is None:
+            launches = n_launch
+            walls["fused_mesh"] = wall
+    return walls, launches
+
+
+def phase9_mixed(g, batch, dev, Cref):
+    """(d) the north star with rhs_mixed False, "df32" and True."""
+    import torch
+
+    system = g.base_system()
+    Co64 = g.default_co(device=dev)
+    n = NORTH_STAR_N
+    pb = g.Params.unpack(torch.as_tensor(batch[:n], device=dev))
+    res, walls = {}, {}
+    for mixed in (False, "df32", True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, ok, steps = g.solve_stiff_refill(
+            system, Co64, pb, extract=_final_C, device=dev, method="rodas4",
+            linsolve_dtype=torch.float32, rhs_mixed=mixed, lanes=n,
+            **NORTH_STAR)
+        torch.cuda.synchronize()
+        walls[str(mixed)] = time.perf_counter() - t0
+        err = _relc(out[0], Cref[0], 1e-8)
+        res[mixed] = (out, steps)
+        log(f"  (d) rhs_mixed={mixed!r}: {n} members in "
+            f"{walls[str(mixed)]:.3f} s; {int((~ok).sum())} lost; steps "
+            f"median {int(steps.median())}, max {int(steps.max())}; member "
+            f"0 vs f64 RODAS4 at rtol {REF_TOL['rtol']:g}: max rel err "
+            f"{err:.3e}")
+        if not bool(ok.all()):
+            raise RuntimeError(f"rhs_mixed={mixed!r} lost members")
+        if not err <= ACCURACY_LIMIT:
+            raise RuntimeError(f"rhs_mixed={mixed!r} is off the reference")
+    (a, sa), (b, sb) = res[False], res["df32"]
+    dsteps = int((sa - sb).abs().max())
+    rel = float(((a - b).abs() / (a.abs() + 1e-6 * a.abs().max())).max())
+    log(f"  (d) df32 against native f64: steps differ by at most {dsteps} "
+        f"a member, values by {rel:.3e}")
+    if dsteps > DF32_STEPS or not rel < DF32_REL:
+        raise RuntimeError("the df32 RHS does not track native f64")
+    return walls
+
+
+def synthetic_plate(n, H, seed):
+    """``n`` PLA images and cell-marker images of H x H pixels: 9 disk
+    cells an image, puncta (Gaussian spots, sigma 1.5 px) inside them,
+    a sloped background and noise; returns (pla, cell, puncta placed)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:H]
+    pla = np.empty((n, H, H), np.float32)
+    cell = np.empty((n, H, H), np.float32)
+    wy, wx = np.mgrid[-7:8, -7:8]
+    spot = np.exp(-(wy ** 2 + wx ** 2) / (2 * 1.5 ** 2))
+    placed = []
+    step = H // 3
+    for i in range(n):
+        c = np.full((H, H), 0.05)
+        p = 0.1 + 0.2 * xx / H
+        count = 0
+        for gy in range(3):
+            for gx in range(3):
+                jit = step // 16
+                cy = step // 2 + gy * step + int(rng.integers(-jit, jit + 1))
+                cx = step // 2 + gx * step + int(rng.integers(-jit, jit + 1))
+                r = int(rng.integers(step // 4, step * 2 // 5))
+                c[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 0.8
+                pts = []
+                for _ in range(int(rng.integers(0, 12))):
+                    py = cy + int(rng.integers(-r // 2, r // 2))
+                    px = cx + int(rng.integers(-r // 2, r // 2))
+                    if all(abs(py - qy) + abs(px - qx) > 12
+                           for qy, qx in pts):
+                        pts.append((py, px))
+                        p[py - 7:py + 8, px - 7:px + 8] += spot
+                count += len(pts)
+        cell[i] = c + 0.01 * rng.standard_normal((H, H))
+        pla[i] = p + 0.005 * rng.standard_normal((H, H))
+        placed.append(count)
+    return pla, cell, placed
+
+
+def phase9_imaging(dev):
+    """(e) puncta quantification of a 1024^2 plate on the card and on the
+    card machine's CPU: counts, masks and labels equal."""
+    import torch
+    from gab1_shp2_tpu_torch.imaging import puncta
+
+    t0 = time.perf_counter()
+    pla, cell, placed = synthetic_plate(**PLATE)
+    log(f"  (e) plate: {PLATE['n']} x {PLATE['H']}^2 pixels made in "
+        f"{time.perf_counter() - t0:.1f} s; puncta placed {placed}")
+    walls, got = {}, []
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = puncta.count_puncta(pla, device=where)
+        labels = puncta.identify_cells(cell[0], device=where)
+        per_cell = puncta.count_puncta_per_cell(pla[0], cell[0],
+                                                device=where)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        got.append((res.count.cpu(), res.mask.cpu(), labels.cpu(),
+                    per_cell))
+        if res.mask.device.type != where.type:
+            raise RuntimeError(f"count_puncta ran on {res.mask.device}")
+        log(f"  (e) {name}: count_puncta over the plate, identify_cells "
+            f"and count_puncta_per_cell of image 0 in {walls[name]:.3f} s; "
+            f"counts {res.count.tolist()}; {len(per_cell.counts)} cells of "
+            f"image 0, puncta per cell {per_cell.counts.tolist()}, "
+            f"{per_cell.n_unassigned} unassigned")
+    (ca, ma, la, pa), (cb, mb, lb, pbc) = got
+    same = (torch.equal(ca, cb) and torch.equal(ma, mb)
+            and torch.equal(la, lb)
+            and all(np.array_equal(x, y) for x, y in zip(pa, pbc)))
+    if not same:
+        raise RuntimeError("the card's puncta counts or labels differ from "
+                           "the CPU's")
+    return walls
+
+
+def phase9_trace(g, batch, dev):
+    """(f) progress.trace around one refill group on the card."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from gab1_shp2_tpu_torch.utils.progress import trace
+
+    system = g.base_system()
+    n = TRACE_RUN["n"]
+    pb = g.Params.unpack(torch.as_tensor(batch[:n], dtype=torch.float32,
+                                         device=dev))
+    Co32 = g.default_co(dtype=torch.float32, device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        with trace(tmp) as run:
+            g.solve_stiff_refill(system, Co32, pb, extract=_final_C,
+                                 device=dev, method="rodas4", lanes=n,
+                                 **dict(CFG, tf=TRACE_RUN["tf"]))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(run.path)
+        with open(run.path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"  (f) trace of a refill group ({n} members, tf="
+            f"{TRACE_RUN['tf']:g}): "
+            f"{wall:.3f} s with the profiler; {size / 1e6:.1f} MB, "
+            f"{len(events)} events, {kernels} CUDA kernel events")
+        if kernels == 0:
+            raise RuntimeError("the trace holds no CUDA kernel events")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return wall
+
+
+def phase9(g, batch, dev, p3, Cref):
+    """The mesh, the mixed RHS, imaging and the trace on the card; each
+    step raises on failure."""
+    walls, launches = phase9_mesh(g, batch, dev, p3)
+    walls.update({f"rhs_mixed={k}": v
+                  for k, v in phase9_mixed(g, batch, dev, Cref).items()})
+    walls.update({f"imaging_{k}": v
+                  for k, v in phase9_imaging(dev).items()})
+    walls["trace"] = phase9_trace(g, batch, dev)
+    return walls, launches
+
+
 def main():
     import torch
 
@@ -1332,7 +1665,8 @@ def main():
     t = time.perf_counter()
     log("phase 3: f32 rodas4 lane-refill headline (eager), N=1024")
     Cref = f64_reference(g, batch, dev)
-    sps3 = phase3(g, batch, dev, Cref)
+    p3 = phase3(g, batch, dev, Cref)
+    sps3 = p3["sps"]
     log(f"phase 3 wall {time.perf_counter() - t:.1f} s")
 
     erows = {}
@@ -1364,7 +1698,13 @@ def main():
     walls = phase8(dev)
     log(f"phase 8 wall {time.perf_counter() - t:.1f} s")
 
-    log("phase 9: kernels")
+    t = time.perf_counter()
+    log("phase 9: the sharded ensemble over a mesh of the card's slots, the "
+        "mixed-precision RHS, PLA imaging and the trace")
+    walls9, mesh_launches = phase9(g, batch, dev, p3, Cref)
+    log(f"phase 9 wall {time.perf_counter() - t:.1f} s")
+
+    log("phase 10: kernels")
     kernels = [dict(
         name="ros23_step_fused", route="cuda",
         source="gab1_shp2_tpu_torch/csrc/ros23_step.cu",
@@ -1383,6 +1723,7 @@ def main():
         ms_nb100_b64=rows["ms_nb100_b64"],
         ms_nb100_b64_global_arena=rows["ms_nb100_b64_global_arena"],
         ms_nb200_b64=rows["ms_nb200_b64"],
+        launches_mesh_threads=mesh_launches,
         plain_ms=rows["plain_ms"], bound_ms=rows["bound_ms"],
         bound_by=rows["bound_by"], library_ms=None), dict(
         name="solve_explicit_fused", route="cuda",
@@ -1405,6 +1746,8 @@ def main():
         f"{k} {v:.2f}" for k, v in inf.items()))
     log("workload drivers, wall s (first readings): " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items()))
+    log(f"phase 9, wall s (first readings; {card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls9.items()))
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
-"""Parameter-ensemble engine for one device.
+"""Parameter-ensemble engine.
 
 Counterpart of ``gab1_shp2_tpu/ensemble/engine.py``.  The reference
 batches independent PDE solves over parameter sets with threads, ``pmap``
 and ``MCMCDistributed`` (``get_param_posteriors.jl:147``,
 ``sapdesolver.jl:323``); here one batched solver call per chunk or refill
-group does it.
+group does it, and with ``device_axis`` one such call per slot of a
+device mesh (``parallel/mesh.py``), each on its own worker thread.
 
 Failure isolation is masking, not try/catch: members whose solve produced
 NaN (or whose stiff integration failed) are dropped from summaries the
@@ -12,11 +13,10 @@ way the reference skips NaN samples (``get_param_posteriors.jl:155``).
 
 Left out against the JAX package, on purpose: the chunk caps that guard
 its accelerator runtime's single-execution watchdog (they fire on that
-platform only), the ``jit``/``lru_cache`` of compiled chunk solvers
-(eager torch has nothing to cache), and the sharded ``device_axis``/
-``mesh`` path, which raises ``NotImplementedError`` (ROADMAP A13).
-Passing ``scheduler`` with a solver other than ``"stiff"`` raises
-``ValueError`` here; the JAX package ignores it.
+platform only) and the ``jit``/``lru_cache`` of compiled chunk solvers
+(eager torch has nothing to cache).  Passing ``scheduler`` with a solver
+other than ``"stiff"`` raises ``ValueError`` here; the JAX package
+ignores it.
 """
 
 from __future__ import annotations
@@ -39,6 +39,12 @@ from gab1_shp2_tpu_torch.ops.batch_stiff import (
 )
 from gab1_shp2_tpu_torch.ops.explicit import solve_explicit
 from gab1_shp2_tpu_torch.ops.solution import Solution
+from gab1_shp2_tpu_torch.parallel.mesh import (
+    ensemble_mesh,
+    normalize_device,
+    pad_to_multiple,
+    run_sharded_batch,
+)
 
 
 def _identity(sol):
@@ -114,17 +120,41 @@ def run_ensemble(
     finished lanes swapped for queued ones in flight).  Default
     (``None``): refill.  Per-member results are controller-identical
     between schedulers (exact step counts; values to float roundoff).
+
+    ``device_axis`` (the axis name of a 1-D ``parallel.mesh.DeviceMesh``,
+    e.g. ``"ensemble"``) shards the stiff ensemble over the mesh's slots,
+    one worker thread each: under ``"refill"`` every slot runs its own
+    refill queue over its shard of each group of ``refill_group`` members
+    per slot; under ``"sorted"`` every dispatch solves a super-chunk of
+    ``slots * chunk`` members, ``chunk`` per slot, with the pilot fit
+    over the whole first super-chunk.  ``mesh=None`` means
+    ``ensemble_mesh()``, every CUDA card.  The inputs and outputs live on
+    ``mesh.devices[0]`` (``device``, if given, must name it); a
+    per-member ``Co`` is sharded with the members.  Per-member results
+    do not depend on the sharding.  ``mesh`` is read only with
+    ``device_axis``, as in the JAX package.
     """
-    if device_axis is not None or mesh is not None:
-        raise NotImplementedError(
-            "device_axis/mesh sharding is not ported yet (ROADMAP A13)")
     if solver not in ("stiff", "explicit"):
         raise ValueError(f"unknown solver {solver!r}")
     if scheduler is not None and solver != "stiff":
         raise ValueError(
             f"scheduler={scheduler!r} applies to solver='stiff' only, got "
             f"solver={solver!r}")
-    dev = resolve_device(device)
+    if device_axis is None:
+        mesh = None
+        dev = resolve_device(device)
+    else:
+        if solver != "stiff":
+            raise NotImplementedError(
+                "device_axis sharding is implemented for solver='stiff' (the "
+                "production ensemble path); the explicit solver is single-"
+                "device: drop device_axis or use solver='stiff'")
+        mesh = _resolve_mesh(mesh, device_axis)
+        dev = mesh.devices[0]
+        if (device is not None
+                and normalize_device(resolve_device(device)) != dev):
+            raise ValueError(f"device={device!r} is not the mesh's first "
+                             f"device {dev}, where the outputs gather")
     Co = torch.as_tensor(Co, device=dev)
     if isinstance(ensemble, Params):
         pb = ensemble.to(device=dev)
@@ -147,22 +177,28 @@ def run_ensemble(
                     "(collective refresh votes need fixed chunk "
                     "membership); use scheduler='sorted'")
             return _run_stiff_refill(system, Co, pb, N, extract, chunk,
-                                     refill_group, dev, kw)
+                                     refill_group, kw, mesh=mesh)
         if scheduler != "sorted":
             raise ValueError(f"unknown scheduler {scheduler!r}")
 
-        def chunk_solver(idx):
-            # a per-member Co (N, 5) gives each chunk its own rows; the
-            # JAX package hands every chunk the whole array and raises
-            co = Co if Co.ndim == 1 or idx is None else Co[idx]
-            p = pb if idx is None else _take(pb, idx)
-            sol, stats = solve_stiff_batch(system, co, p, device=dev,
+        def solve_chunk(co, p):
+            sol, stats = solve_stiff_batch(system, co, p, device=p.k.device,
                                            return_stats=True,
                                            jac_reuse=jac_reuse, **kw)
             out = _extract_members(extract, sol)
             ok = ~stats.failed & torch.isfinite(sol.C[:, -1]).all(
                 dim=-1).all(dim=-1)
             return out, ok, stats.n_accepted + stats.n_rejected
+
+        if mesh is not None:
+            return _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh,
+                                      sort=not jac_reuse)
+
+        def chunk_solver(idx):
+            # a per-member Co (N, 5) gives each chunk its own rows; the
+            # JAX package hands every chunk the whole array and raises
+            co = Co if Co.ndim == 1 or idx is None else Co[idx]
+            return solve_chunk(co, pb if idx is None else _take(pb, idx))
 
         if chunk is None or chunk >= N:
             return chunk_solver(None)[:2]
@@ -190,25 +226,99 @@ def run_ensemble(
     return solve_members(pb, dts, n_steps)
 
 
-def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, dev,
-                      kw):
+def _resolve_mesh(mesh, device_axis):
+    """The mesh a sharded run uses: ``mesh``, or every CUDA card."""
+    if mesh is None:
+        return ensemble_mesh(axis=device_axis)
+    if device_axis not in mesh.axis_names:
+        raise ValueError(f"device_axis {device_axis!r} not in mesh axes "
+                         f"{mesh.axis_names}")
+    return mesh
+
+
+def _on_mesh(fn, Co, p: Params, mesh):
+    """``fn(Co_s, p_s)`` on every slot of ``mesh`` over its shard of the
+    members (and of a per-member ``Co``), gathered on the first device.
+    The member count must be a multiple of the slot count."""
+    if Co.ndim == 1:
+        return run_sharded_batch(
+            lambda a: fn(Co.to(a[0].device), Params(D=a[0], k=a[1])),
+            (p.D, p.k), mesh)
+    return run_sharded_batch(lambda a: fn(a[0], Params(D=a[1], k=a[2])),
+                             (Co, p.D, p.k), mesh)
+
+
+def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, kw,
+                      mesh=None):
     """Dispatch the stiff ensemble through the lane-refill scheduler: one
     ``solve_stiff_refill`` call per ``refill_group`` members (default
     4096) over ``chunk`` lanes (default 256), and no more lanes than
     members: eager operations pay for every lane, an idle one too (the
-    JAX package keeps ``chunk`` lanes, the idle ones masked)."""
-    lanes = min(int(chunk) if chunk is not None else 256, N)
+    JAX package keeps ``chunk`` lanes, the idle ones masked).
+
+    With a ``mesh`` of D slots each group holds ``refill_group * D``
+    members; the tail group is padded to a multiple of D (repeating its
+    last member, sliced off after), and every slot runs its own refill
+    queue over its shard, with no more lanes than the shard's members.
+    """
+    lanes = int(chunk) if chunk is not None else 256
     group = max(int(refill_group) if refill_group is not None else 4096,
-                lanes)
+                min(lanes, N))
     co_shared = Co.ndim == 1
+
+    def solve_group(co, p):
+        out, ok, _ = solve_stiff_refill(system, co, p, extract=extract,
+                                        device=p.k.device,
+                                        lanes=min(lanes, p.k.shape[0]),
+                                        **kw)
+        return out, ok
+
+    D = 1 if mesh is None else mesh.size
+    group *= D
     outs = []
     for s in range(0, N, group):
         p_g = _take(pb, slice(s, s + group))
         Co_g = Co if co_shared else Co[s:s + group]
-        out, ok, _ = solve_stiff_refill(system, Co_g, p_g, extract=extract,
-                                        device=dev, lanes=lanes, **kw)
-        outs.append((out, ok))
+        if mesh is None:
+            outs.append(solve_group(Co_g, p_g))
+            continue
+        # shards must be equal-size: pad the tail group to a multiple of
+        # D, slice the repeats off below
+        (D_g, k_g), n_g = pad_to_multiple((p_g.D, p_g.k), D)
+        if not co_shared:
+            Co_g, _ = pad_to_multiple(Co_g, D)
+        out, ok = _on_mesh(solve_group, Co_g, Params(D=D_g, k=k_g), mesh)
+        outs.append(pytree.tree_map(lambda a: a[:n_g], (out, ok)))
     return _cat(outs)
+
+
+def _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh, sort=True):
+    """Dispatch the stiff ensemble over a device mesh under the sorted
+    scheduler: every dispatch solves a super-chunk of ``D * chunk``
+    members (``chunk`` per slot, default ``ceil(N / D)``), scheduled by
+    the same pilot-fit cost sorting as the single-device path (the pilot
+    is the whole first super-chunk).  The members are padded to a
+    multiple of the super-chunk (repeating the last one, as the pilot
+    indexing needs), and the padding is sliced off at the end."""
+    D = mesh.size
+    c = int(chunk) if chunk is not None else -(-N // D)
+    super_chunk = D * c
+    pad = (-N) % super_chunk
+    (D_p, k_p), _ = pad_to_multiple((pb.D, pb.k), super_chunk)
+    pb = Params(D=D_p, k=k_p)
+    if Co.ndim == 2:
+        Co, _ = pad_to_multiple(Co, super_chunk)
+
+    def chunk_solver(idx):
+        idx_t = torch.as_tensor(idx, device=pb.k.device)
+        co = Co if Co.ndim == 1 else Co[idx_t]
+        return _on_mesh(solve_chunk, co, _take(pb, idx_t), mesh)
+
+    out, ok = _run_stiff_cost_sorted(chunk_solver, pb, N + pad, super_chunk,
+                                     sort=sort)
+    if pad:
+        out, ok = pytree.tree_map(lambda a: a[:N], (out, ok))
+    return out, ok
 
 
 def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):

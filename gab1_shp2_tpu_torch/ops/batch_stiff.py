@@ -20,6 +20,12 @@ depend on the scheduler that runs it.
 ``"xla"`` (the unfused eager step) and ``"fused"`` is JAX's ``"pallas"``
 (one launch of the hand-written CUDA kernel of ``ops/ros23_cuda.py`` per
 step; on a CPU tensor its plain torch version).
+
+``rhs_mixed`` (float64 states only) evaluates the right-hand side in
+float32 pairs: ``"df32"`` with the compensated arithmetic of
+``ops/rhs_df32.py`` (~2^-48 of the float64 RHS), ``True`` as a
+jvp-corrected hi/lo split (~1e-7 floor).  The JAX package added both
+because the TPU emulates float64; native float64 stays the default.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from gab1_shp2_tpu_torch.models.system import (
     Geometry,
     ReactionDiffusionSystem,
 )
+from gab1_shp2_tpu_torch.ops import fwdgrad
 from gab1_shp2_tpu_torch.ops import rhs as rhs_mod
 from gab1_shp2_tpu_torch.ops.jacobian import (
     BLK,
@@ -266,6 +273,7 @@ class _LaneParams(NamedTuple):
     k_ls: dict             # the same in the linear-solve dtype
     d_eff_ls: torch.Tensor
     k_packed: torch.Tensor  # (B, 17) contiguous, for the fused kernel
+    p: Params              # the parameters themselves, state dtype
 
 
 class _SolverCtx:
@@ -282,10 +290,11 @@ class _SolverCtx:
     newton_iters = 6
 
     def __init__(self, system, R, dr, Nts, rtol, atol, tf_total, dtype,
-                 device, linsolve_dtype, method, step_impl):
+                 device, linsolve_dtype, method, step_impl, rhs_mixed=False):
         if method not in ("trbdf2", "rosenbrock23", *_ROW_TABLEAUS):
             raise ValueError(f"unknown method {method!r}")
         self.system, self.dr, self.Nts = system, dr, Nts
+        self.rhs_mixed = rhs_mixed
         self.rtol, self.atol, self.tf_total = rtol, atol, tf_total
         self.dtype, self.method, self.step_impl = dtype, method, step_impl
         self.Nr = int(round(R / dr))
@@ -297,6 +306,11 @@ class _SolverCtx:
         self.ls_dtype = linsolve_dtype if linsolve_dtype else dtype
         self.rj = r64[1:-1].to(dtype=dtype, device=device)
         self.rj_ls = r64[1:-1].to(dtype=self.ls_dtype, device=device)
+        if rhs_mixed == "df32":
+            from gab1_shp2_tpu_torch.ops.rhs_df32 import (
+                make_mol_rhs_lanes_df32,
+            )
+            self._f_df32, _ = make_mol_rhs_lanes_df32(system, R, dr)
         self.eye_l = torch.eye(BLK, dtype=self.ls_dtype,
                                device=device)[None, :, :, None]
         self.slot_ids = torch.arange(Nts + 1, dtype=torch.int32,
@@ -316,12 +330,38 @@ class _SolverCtx:
         else:
             k_ls, d_eff_ls = k, d_eff
         return _LaneParams(k=k, d_eff=d_eff, k_ls=k_ls, d_eff_ls=d_eff_ls,
-                           k_packed=p.k.contiguous())
+                           k_packed=p.k.contiguous(), p=p)
 
     def make_f(self, lp: _LaneParams):
         """The lane-batched RHS closed over the lane parameters."""
         system, rj, dr = self.system, self.rj, self.dr
+        if self.rhs_mixed == "df32":
+            return lambda y: self._f_df32(y, lp.p)
+        if self.rhs_mixed:
+            return self._jvp_split_f(lp)
         return lambda y: lane_rhs(system, y, lp.k, lp.d_eff, rj, dr)
+
+    def _jvp_split_f(self, lp: _LaneParams):
+        """The double-single RHS: y splits into an f32 hi part and an f32
+        lo remainder; the f32 lane RHS at y_hi and its tangent along y_lo
+        (one dual-number evaluation: the value path is the plain f32 RHS)
+        are added in the state dtype.  The tangent restores the bits the
+        truncation dropped; the f32 rounding of f(y_hi) itself (~1e-7
+        relative) is not recoverable this way."""
+        system, dr, dtype = self.system, self.dr, self.dtype
+        rj32 = self.rj.to(torch.float32)
+        p32 = lp.p.to(dtype=torch.float32)
+        k32 = kdict(p32.k)
+        d_eff32 = rhs_mod.effective_diffusivities(system, p32)
+
+        def f(y):
+            y_hi = y.to(torch.float32)
+            y_lo = (y - y_hi.to(dtype)).to(torch.float32)
+            out = lane_rhs(system, fwdgrad.seed(y_hi, y_lo[None]), k32,
+                           d_eff32, rj32, dr)
+            return out.v.to(dtype) + out.d[0].to(dtype)
+
+        return f
 
     # --- pieces -----------------------------------------------------------
     def factor(self, L, D, U):
@@ -495,12 +535,12 @@ JAC_MAX_AGE = 20
 
 def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
                       max_steps, h0, method, linsolve_dtype, step_impl,
-                      jac_reuse=False):
+                      jac_reuse=False, rhs_mixed=False):
     dtype, dev = Co.dtype, Co.device
     B = params.k.shape[0]
     tf_total = legs[-1][1]
     ctx = _SolverCtx(system, R, dr, Nts, rtol, atol, tf_total, dtype, dev,
-                     linsolve_dtype, method, step_impl)
+                     linsolve_dtype, method, step_impl, rhs_mixed)
     Nr, M, eps = ctx.Nr, ctx.M, ctx.eps
 
     if Co.ndim == 2:
@@ -561,7 +601,8 @@ def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
 
 def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
                        max_steps, h0, method, linsolve_dtype, lanes,
-                       harvest_every, extract, t_prechase=None, params2=None):
+                       harvest_every, extract, t_prechase=None, params2=None,
+                       rhs_mixed=False):
     """Continuation-batched stiff ensemble solve with lane refill.
 
     ``lanes`` lanes integrate continuously; every ``harvest_every``
@@ -577,7 +618,7 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
     N = params.k.shape[0]
     B, K = int(lanes), int(harvest_every)
     ctx = _SolverCtx(system, R, dr, Nts, rtol, atol, tf, dtype, dev,
-                     linsolve_dtype, method, "torch")
+                     linsolve_dtype, method, "torch", rhs_mixed)
     M, Nr, eps = ctx.M, ctx.Nr, ctx.eps
     t_save = torch.linspace(0.0, tf, Nts + 1,
                             dtype=torch.float64).to(dtype=dtype, device=dev)
@@ -677,17 +718,27 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
     return out_all, ok_all, steps_all
 
 
+def _norm_rhs_mixed(rhs_mixed):
+    """The rhs_mixed flag as False (the RHS in the state dtype), True
+    (jvp-split double-f32, ~1e-7 floor) or ``"df32"`` (compensated EFT
+    double-f32, ~2^-48; :mod:`gab1_shp2_tpu_torch.ops.rhs_df32`)."""
+    if rhs_mixed == "df32":
+        return "df32"
+    return bool(rhs_mixed)
+
+
 def _prepare(Co, params, device, rhs_mixed):
     """Shared argument handling of the two entry points."""
-    if rhs_mixed:
-        raise NotImplementedError(
-            "rhs_mixed is not ported yet (ROADMAP A14)")
     dev = resolve_device(device)
     Co = torch.as_tensor(Co, device=dev)
     params = params.to(dtype=Co.dtype, device=dev)
     if params.k.ndim != 2:
         raise ValueError("batched params (B, ...) are required")
-    return Co, params
+    rhs_mixed = _norm_rhs_mixed(rhs_mixed)
+    if rhs_mixed and Co.dtype == torch.float32:
+        raise ValueError("rhs_mixed splits a wide state into an f32 hi/lo "
+                         "pair; it requires a float64 state")
+    return Co, params, rhs_mixed
 
 
 def solve_stiff_refill(
@@ -720,10 +771,13 @@ def solve_stiff_refill(
     leg switching.  ``extract`` maps one member's :class:`Solution` to
     what is kept; it is applied over lanes with ``torch.func.vmap``.
 
+    ``rhs_mixed`` (float64 state only; see the module docstring):
+    ``"df32"`` or ``True``.
+
     Returns ``(out, ok, steps)``: the per-member extracted outputs with a
     leading (N,) axis, a success mask, and per-member step counts.
     """
-    Co, params = _prepare(Co, params, device, rhs_mixed)
+    Co, params, rhs_mixed = _prepare(Co, params, device, rhs_mixed)
     params2 = None
     if t_prechase is not None:
         params2 = params.replace(kp=0.0)
@@ -733,7 +787,7 @@ def solve_stiff_refill(
                               int(max_steps), float(h0), method,
                               linsolve_dtype, int(lanes), int(harvest_every),
                               extract, t_prechase=t_prechase,
-                              params2=params2)
+                              params2=params2, rhs_mixed=rhs_mixed)
 
 
 def solve_stiff_batch(
@@ -777,8 +831,14 @@ def solve_stiff_batch(
     Newton failure or a leg change; W is refactored every step), so
     solutions agree with the default to the integration tolerance, not
     bit for bit.
+
+    ``rhs_mixed`` (float64 state only) evaluates the RHS in float32
+    pairs: ``"df32"`` compensated (~2^-48 of the float64 RHS, fit for the
+    rtol 1e-6 north star), ``True`` jvp-split (~1e-7 floor, ~1e-5
+    end to end at rtol 1e-6).  Both exist because the JAX package's
+    accelerator emulates float64; native float64 is the default.
     """
-    Co, params = _prepare(Co, params, device, rhs_mixed)
+    Co, params, rhs_mixed = _prepare(Co, params, device, rhs_mixed)
     if t_prechase is None:
         legs = ((0.0, float(tf), params),)
     else:
@@ -798,7 +858,8 @@ def solve_stiff_batch(
                                    float(dr), int(Nts), rtol, atol,
                                    int(max_steps), float(h0), method,
                                    linsolve_dtype, step_impl,
-                                   jac_reuse=bool(jac_reuse))
+                                   jac_reuse=bool(jac_reuse),
+                                   rhs_mixed=rhs_mixed)
     if return_stats:
         return sol, stats
     return sol

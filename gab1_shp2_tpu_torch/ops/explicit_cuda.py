@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -64,8 +65,18 @@ from gab1_shp2_tpu_torch.ops.rhs import (
     memb_rates,
 )
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0); the
+# wrapper may run on several threads at once (parallel/mesh.py), so it
+# counts under a lock
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to ``LAUNCHES`` (the wrapper calls it after each launch)."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 # a lane holds up to 4 nodes, a member up to 8 warps: 1024 interior nodes
 MAX_NODES = 4 * 32 * 8 + 2
@@ -291,7 +302,6 @@ def solve_explicit_fused(
     for the grid, and each launch takes its members in
     :func:`member_order`.
     """
-    global LAUNCHES
     dev = resolve_device(device)
     if dev.type == "cpu":
         return solve_explicit_plain(system, Co, params, R=R, dr=dr, tf=tf,
@@ -321,7 +331,7 @@ def solve_explicit_fused(
         _launch(system, plan, c0, m0, k[s:s + n], d_eff[s:s + n],
                 dts[s:s + n], nt[s:s + n], member_order(nt[s:s + n]),
                 C_out[s:s + n], m_out[s:s + n], dr, maxiters)
-        LAUNCHES += 1
+        count_launch()
     return C_out, m_out
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -49,8 +50,18 @@ from gab1_shp2_tpu_torch.ops.rates_codegen import rates_header
 from gab1_shp2_tpu_torch.ops.rhs import kdict
 from gab1_shp2_tpu_torch.ops.trbdf2 import _ROS_D, _ROS_E32
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0); the
+# wrapper may run on several threads at once (parallel/mesh.py), so it
+# counts under a lock
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to ``LAUNCHES`` (the wrapper calls it after each launch)."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 
 # the 227 KB of shared memory a block may ask for on Hopper, less 256 B
@@ -228,7 +239,6 @@ def ros23_step_fused(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
     is :func:`ros23_step_plain`; on CUDA tensors it launches the kernel
     on the current stream.
     """
-    global LAUNCHES
     if y.device.type == "cpu":
         return ros23_step_plain(system, y, f_n, h, k_batch, d_eff, Nr, dr)
     if y.device.type != "cuda":
@@ -239,7 +249,7 @@ def ros23_step_fused(system: ReactionDiffusionSystem, y, f_n, h, k_batch,
         raise ValueError(f"y has shape {tuple(y.shape)}; expected "
                          f"({int(Nr)}, {BLK}, B) for Nr={Nr}")
     out = _launch(system, y, f_n, h, k_batch, d_eff, dr)
-    LAUNCHES += 1
+    count_launch()
     return out
 
 

@@ -149,7 +149,7 @@ def _small_call(**kw):
           linsolve_dtype=torch.float64), ValueError, "float32"),
     (dict(step_impl="pallas"), ValueError, "step_impl"),
     (dict(method="euler"), ValueError, "method"),
-    (dict(rhs_mixed="df32"), NotImplementedError, "A14"),
+    (dict(rhs_mixed="df32"), ValueError, "float64 state"),
 ])
 def test_scope_guards(kw, exc, match):
     with pytest.raises(exc, match=match):

@@ -22,6 +22,7 @@ from gab1_shp2_tpu.models.observables import gsa_outputs as j_gsa
 
 import gab1_shp2_tpu_torch as tg
 from gab1_shp2_tpu_torch.models.observables import gsa_outputs as t_gsa
+from gab1_shp2_tpu_torch.parallel.mesh import ensemble_mesh
 
 torch.set_num_threads(2)
 
@@ -164,8 +165,9 @@ def test_argument_errors():
         _t_run(batch, solver="implicit", **FAST)
     with pytest.raises(ValueError, match="unknown solver"):
         _t_run(batch, solver="implicit", scheduler="refill", **FAST)
-    with pytest.raises(NotImplementedError, match="A13"):
-        _t_run(batch, device_axis="ensemble", **FAST)
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        _t_run(batch, device_axis="members",
+               mesh=ensemble_mesh(["cpu"]), **FAST)
     with pytest.raises(ValueError, match="jac_reuse"):
         _t_run(batch, jac_reuse=True, scheduler="refill", **FAST)
     if not torch.cuda.is_available():

@@ -498,3 +498,128 @@ def test_get_ensemble_same_on_both(cuda):
     assert on_card.k.device.type == "cuda"
     assert torch.equal(on_card.pack().cpu(), on_cpu.pack())
     np.testing.assert_array_equal(on_card.pack().cpu().numpy(), ens)
+
+
+# --- the mesh, the mixed RHS, imaging, the trace ---------------------------
+
+
+def _members(n, seed=0, sigma=0.2):
+    rng = np.random.default_rng(seed)
+    p0 = tg.default_params(device="cpu").pack().numpy()
+    return p0[None] * np.exp(rng.normal(0.0, sigma, (n, 24)))
+
+
+def test_refill_sharded_over_two_slots_of_one_card(cuda):
+    """Two worker threads, each a refill queue on cuda:0, against the
+    unsharded refill: f64, so every member's steps and values agree
+    within 1e-12; the outputs gather on cuda:0."""
+    from gab1_shp2_tpu_torch.parallel.mesh import ensemble_mesh
+
+    batch = torch.as_tensor(_members(10, seed=4))
+    kw = dict(solver="stiff", extract=lambda s: s.PG1Stot[-1], dr=0.5,
+              tf=0.5, Nts=2, rtol=1e-4, atol=1e-7, method="rodas4", chunk=4)
+    co = tg.default_co(device=cuda)
+    a, oka = tg.run_ensemble(tg.base_system(), co, batch, **kw)
+    b, okb = tg.run_ensemble(tg.base_system(), co, batch,
+                             device_axis="ensemble",
+                             mesh=ensemble_mesh(["cuda:0", "cuda:0"]), **kw)
+    assert b.device == torch.device("cuda", 0)
+    assert torch.equal(oka, okb) and bool(okb.all())
+    torch.testing.assert_close(b, a, rtol=1e-12, atol=0)
+
+
+def test_fused_step_from_worker_threads(cuda):
+    """run_sharded_batch of the fused Rosenbrock23 path over two slots of
+    the card: the kernel launches from both worker threads, each inside
+    the card's device context, and the result agrees with the unsharded
+    batch's within 5e-5 relative (the JAX test's bound: the error norms
+    are reductions whose order may follow the batch's width)."""
+    from gab1_shp2_tpu_torch.parallel.mesh import (
+        ensemble_mesh,
+        run_sharded_batch,
+    )
+
+    system = tg.base_system()
+    co = tg.default_co(dtype=torch.float32, device=cuda)
+    kw = dict(dr=0.5, tf=0.5, Nts=2, rtol=1e-4, atol=1e-7,
+              method="rosenbrock23", step_impl="fused", return_stats=True)
+    batch = torch.as_tensor(_members(16), dtype=torch.float32, device=cuda)
+
+    def local(packed):
+        sol, st = tg.solve_stiff_batch(system, co.to(packed.device),
+                                       tg.Params.unpack(packed),
+                                       device=packed.device, **kw)
+        return sol.C[:, -1], st.n_accepted + st.n_rejected
+
+    before = ros23_cuda.LAUNCHES
+    C, steps = run_sharded_batch(local, batch, ensemble_mesh(["cuda:0",
+                                                              "cuda:0"]))
+    launched = ros23_cuda.LAUNCHES - before
+    C_ref, steps_ref = local(batch)
+    # each slot launches once per step of its slowest lane
+    assert launched == int(steps[:8].max()) + int(steps[8:].max())
+    assert bool((steps > 0).all()) and bool((steps_ref > 0).all())
+    torch.testing.assert_close(C, C_ref, rtol=5e-5, atol=1e-8)
+
+
+def test_rhs_df32_card_matches_cpu(cuda):
+    """Every float32 operation of the compensated RHS rounds on its own on
+    both devices: the card's result equals the CPU's within 1e-13."""
+    from gab1_shp2_tpu_torch.ops.rhs_df32 import make_mol_rhs_lanes_df32
+
+    rng = np.random.default_rng(3)
+    f, _ = make_mol_rhs_lanes_df32(tg.base_system(), R, DR)
+    y = torch.as_tensor(rng.uniform(0.1, 5.0, (NR, 10, 8)))
+    y[-1, 8:] = 0.0
+    p = tg.Params.unpack(torch.as_tensor(_members(8)))
+    cpu = f(y, p)
+    card = f(y.to(cuda), p.to(device=cuda)).cpu()
+    assert float(((card - cpu).abs() / (cpu.abs() + 1e-30)).max()) <= 1e-13
+
+
+def test_puncta_card_matches_cpu(cuda):
+    """Counts, masks and cell labels on the card equal the CPU's."""
+    from gab1_shp2_tpu_torch.imaging import puncta
+
+    rng = np.random.default_rng(0)
+    H = W = 160
+    yy, xx = np.mgrid[0:H, 0:W]
+    pla = 0.1 + 0.005 * rng.standard_normal((2, H, W))
+    cell = np.full((H, W), 0.05) + 0.01 * rng.standard_normal((H, W))
+    for cy, cx, r in ((40, 40, 26), (40, 120, 22), (120, 80, 30)):
+        cell[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 0.8
+        for dy, dx in ((-8, 0), (0, 8), (8, -8)):
+            pla += np.exp(-((yy - cy - dy) ** 2 + (xx - cx - dx) ** 2)
+                          / (2 * 1.5 ** 2))
+    pla, cell = pla.astype(np.float32), cell.astype(np.float32)
+    for method in ("otsu", "li"):
+        got = puncta.count_puncta(pla, feature_size=6.0, min_distance=4,
+                                  threshold_method=method)
+        want = puncta.count_puncta(pla, feature_size=6.0, min_distance=4,
+                                   threshold_method=method, device="cpu")
+        assert got.mask.device.type == "cuda"
+        assert torch.equal(got.count.cpu(), want.count)
+        assert torch.equal(got.mask.cpu(), want.mask)
+    labels = puncta.identify_cells(cell)
+    assert torch.equal(labels.cpu(), puncta.identify_cells(cell,
+                                                           device="cpu"))
+    a = puncta.count_puncta_per_cell(pla[0], cell, feature_size=6.0,
+                                     min_distance=4)
+    b = puncta.count_puncta_per_cell(pla[0], cell, feature_size=6.0,
+                                     min_distance=4, device="cpu")
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_trace_holds_kernel_events(cuda, tmp_path):
+    import json
+
+    from gab1_shp2_tpu_torch.utils.progress import trace
+
+    x = torch.ones(1 << 20, device=cuda)
+    with trace(str(tmp_path)) as run:
+        (x * 2.0).sum()
+        torch.cuda.synchronize()
+    with open(run.path) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

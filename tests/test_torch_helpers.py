@@ -10,20 +10,28 @@ port's CSV readers return the written float64 values exactly (Python's
 ``float`` rounds correctly); pandas' default C parser, which the JAX
 package's readers use, can be a few hundred ulps off (3.9e-13 relative
 seen here), so the two readers agree within 1e-12.  The statistics
-agree within 1e-12 (the same scipy quadrature).
+agree within 1e-12 (the same scipy quadrature).  ``progress`` prints the
+JAX package's line up to the rates and times it measures.
 """
+
+import json
+import os
+import re
 
 import numpy as np
 import pytest
+import torch
 
 import gab1_shp2_tpu.models.params as jparams
 import gab1_shp2_tpu.priors.posteriors as jpost
+from gab1_shp2_tpu.utils import progress as jprogress
 from gab1_shp2_tpu.utils import stats as jstats
 from gab1_shp2_tpu.workloads import common as jcommon
 
 import gab1_shp2_tpu_torch.models.params as tparams
 import gab1_shp2_tpu_torch.priors.posteriors as tpost
 from gab1_shp2_tpu_torch.utils import stats as tstats
+from gab1_shp2_tpu_torch.utils import progress as tprogress
 from gab1_shp2_tpu_torch.utils.cache import Checkpointer, compute_or_load
 from gab1_shp2_tpu_torch.workloads import common as tcommon
 
@@ -161,3 +169,39 @@ def test_stats_match_jax():
     assert tstats.jzs_ttest_bf10(a, far) > 1e6
     assert tstats.jzs_ttest_bf10(a, near) < 1.0
     assert abs(tstats.hedges_g(a, a + 1.0) + 1.0) < 0.05
+
+
+def _without_numbers(text):
+    return re.sub(r"\d+\.\d+", "R", re.sub(r"eta \d+s", "eta Ts", text))
+
+
+@pytest.mark.parametrize("total", [None, 5])
+def test_progress_prints_the_jax_line(capsys, total):
+    items = iter(range(5)) if total is None else list(range(5))
+    got = list(tprogress.progress(items, desc="solve", every=0.0))
+    t_err = capsys.readouterr().err
+    items = iter(range(5)) if total is None else list(range(5))
+    want = list(jprogress.progress(items, desc="solve", every=0.0))
+    j_err = capsys.readouterr().err
+    assert got == want == list(range(5))
+    assert "solve 5" in t_err and t_err.endswith("\n")
+    assert _without_numbers(t_err) == _without_numbers(j_err)
+
+
+def test_timer_prints_the_block_time(capsys):
+    with tprogress.timer("solve"):
+        torch.ones(8).sum()
+    err = capsys.readouterr().err
+    assert re.fullmatch(r"\[solve\] \d+\.\d{3}s\n", err), err
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """On the CPU the trace holds the block's CPU operations (the card
+    test holds CUDA kernel events too)."""
+    with tprogress.trace(str(tmp_path / "tr")) as run:
+        (torch.ones(64) * 2.0).sum()
+    assert isinstance(run.profile, torch.profiler.profile)
+    assert os.path.dirname(run.path) == str(tmp_path / "tr")
+    with open(run.path) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("name") == "aten::mul" for e in events)

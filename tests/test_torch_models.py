@@ -185,6 +185,11 @@ def test_import_pulls_in_no_jax():
         "import gab1_shp2_tpu_torch.workloads.plot_parameter_distributions\n"
         "import gab1_shp2_tpu_torch.workloads.gsa_driver\n"
         "import gab1_shp2_tpu_torch.workloads.fit_and_infer\n"
+        "import gab1_shp2_tpu_torch.utils.progress\n"
+        "import gab1_shp2_tpu_torch.imaging.puncta\n"
+        "import gab1_shp2_tpu_torch.ops.df32\n"
+        "import gab1_shp2_tpu_torch.ops.rhs_df32\n"
+        "import gab1_shp2_tpu_torch.parallel.mesh\n"
         "gab1_shp2_tpu_torch.inference.loss.prior_box()\n"
         "gab1_shp2_tpu_torch.workloads.common.get_ensemble(3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
