@@ -29,8 +29,8 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      unfused step (step_impl="torch");
   3. the bench headline in eager PyTorch: f32 RODAS4 under the
      lane-refill scheduler, N=1024, 256 lanes; member 0 against a tight
-     f64 RODAS4 solve (members 0-3 at rtol 1e-7, solved once for this
-     phase and phase 5);
+     f64 RODAS4 solve (members 0-3 at rtol 1e-7, solved once on the
+     host's CPU for this phase and phases 5 and 9);
   4. the fused explicit solve against solve_explicit_plain at B=256,
      tf=0.25 for base and tf=0.1 for rect and memb_sfk, at B=37 (an odd
      count), and on
@@ -59,9 +59,10 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      likelihood at the draws, importance reweighting, split R-hat, ESS
      and divergences); no kernel of its own (the JAX package computes
      this path with no Pallas kernel);
-  8. the workload drivers (gab1_shp2_tpu_torch.workloads), each through
-     its main() with --outdir a temporary directory (DRIVER_ARGS lists
-     their command lines and the cuts): run_base_model at --n 1000, then
+  8. the workload drivers (gab1_shp2_tpu_torch.workloads), in a process
+     of its own on the card beside phase 7, each through its main() with
+     --outdir a temporary directory (DRIVER_ARGS lists
+     their command lines and the cuts): run_base_model at --n 200, then
      at a small configuration on the card and on the CPU (the CSVs agree
      within 1e-8); pulse_chase (RMSE against the reaction-only ODE trace
      below 20); run_variants --variant hela; length_scales;
@@ -74,9 +75,10 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      own (no driver reaches a Pallas kernel in the JAX package);
   9. the mesh, the mixed RHS, imaging and the trace: (a) run_ensemble
      sharded over a mesh of two slots of the card (two worker threads,
-     each its own refill queue) on phase 3's N=1024 ensemble, against
-     phase 3; (b) the sorted scheduler sharded (N=256, super-chunks of
-     2 x 64) against the unsharded sorted run in chunks of 64; (c)
+     each its own refill queue) on the first 512 members of phase 3's
+     ensemble, against phase 3; (b) the sorted scheduler sharded (N=128,
+     one super-chunk of 2 x 64) against the unsharded sorted run in
+     chunks of 64; (c)
      run_sharded_batch of the fused Rosenbrock23 path (B=256), kernel B1
      launched from the worker threads, launch counts reset just before
      and read just after, against the unsharded batch (and over every
@@ -84,11 +86,31 @@ ensemble engine and the GSA runner, and checks the results.  Phases:
      linear algebra, RODAS4 at rtol 1e-6, 256 members, lane refill) with
      rhs_mixed False, "df32" and True, member 0 against the f64
      reference, df32 against native f64; (e) PLA puncta counts and cell
-     labels of a synthetic 8 x 1024^2 plate on the card and on the CPU,
-     equal; (f) a torch.profiler trace of a refill group holding CUDA
+     labels of a synthetic 8 x 1024^2 plate on the card and on the
+     host's CPU, equal; (f) a torch.profiler trace of a refill group holding CUDA
      kernel events; no kernel of its own (the JAX package reaches no
      Pallas kernel on these paths);
- 10. one JSON line describing every ported kernel.
+ 10. the bench entry point (gab1_shp2_tpu_torch.bench, the port of
+     bench.py) through its own row functions at reduced depth (BENCH_RUN:
+     N=256, one warm-up and one timed run a row): the refill headline,
+     the contiguous-chunk row, the north star and the GSA recipe against
+     bench.py's tight reference (solve_stiff, TRBDF2, f64, rtol 1e-8, on
+     the host's CPU), the roofline block, and run_mesh over the card;
+     gates: 0 failed in every row, each row's error against the
+     reference within ACCURACY_LIMIT, pct_hbm_peak at most 100, the mesh
+     run consistent with the single queue, both lines serialise; no
+     kernel of its own (bench.py's rows reach no Pallas kernel);
+ 11. one JSON line describing every ported kernel.
+
+The host's CPU works beside the card: a pool of HOST_WORKERS worker
+processes, started before phase 0, solves the two f64 references (phase
+3's RODAS4 solve of members 0-3 and the bench's TRBDF2 solve of member
+0) and the plate's CPU counts of phase 9(e) while the card runs phases
+0-8; a phase that needs one waits for it.  These workers see no CUDA
+device.  Phases 7 and 8 both pace the card from the host (eager solves,
+no kernel of the port): phase 8 runs in a second process on the card
+while phase 7 runs in this one, and its log follows phase 7's.  Every
+worker ends with the script.
 
 Every phase raises on failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  It needs no network and imports no
@@ -97,8 +119,9 @@ JAX.  With no CUDA device it exits with status 2 and prints no result.
 
 import concurrent.futures
 import json
+import multiprocessing
+import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -142,9 +165,9 @@ MAP_ARGS = dict(n_starts=2, n_local=1, max_iters=1, dr_coarse=0.2,
 SUR_GRID = 4
 NUTS_RUN = dict(chains=4, warmup=60, samples=50, max_depth=6, seed=0)
 # phase 8: each workload driver's command line (its main(argv) with
-# --outdir a temporary directory), at the driver's defaults except:
-# run_base_model at --n 1000, the reference's lowest ensemble size (the
-# driver's default is 200); gsa_driver at 65 samples a parameter (the
+# --outdir a temporary directory), at the driver's defaults (run_base_model
+# at its --n 200; the reference's lowest ensemble size, 1000, was cut to
+# hold the script's wall) except: gsa_driver at 65 samples a parameter (the
 # reference's 1000; 65 is the least eFAST takes with 4 harmonics);
 # fit_and_infer's NUTS stage on the committed 17^4 surrogate (rebuilding it
 # is 83,521 solves), 4 chains x (300 warmup + 200 draws) instead of 5 x
@@ -155,7 +178,7 @@ NUTS_RUN = dict(chains=4, warmup=60, samples=50, max_depth=6, seed=0)
 # port over seeds 0-7, 4 x 50 draws passed 3 of 8 (300 warmup) and 4 of 8
 # (500 warmup), 4 x 100 passed 7 of 8, 4 x 200 all 8
 DRIVER_ARGS = {
-    "run_base_model": ["--n", "1000"],
+    "run_base_model": [],
     "pulse_chase": [],
     "run_variants": ["--variant", "hela"],
     "length_scales": [],
@@ -179,7 +202,11 @@ DRIVER_SMALL_RTOL = 1e-8
 # 5e-5, atol 1e-8 where both runs solve batches of the same width)
 SHARD_REL = 2e-3
 SHARD_RTOL, SHARD_ATOL = 5e-5, 1e-8
-SORTED_RUN = dict(n=256, chunk=64)
+# (a) the first SHARD_N members of phase 3's ensemble, 256 lanes a slot;
+# (b) SORTED_RUN: one super-chunk of 2 x 64 (both cut by half, from 1024
+# and 256 members, to hold the script's wall)
+SHARD_N = 512
+SORTED_RUN = dict(n=128, chunk=64)
 FUSED_MESH_B = 256
 # the north star (bench.py): f64 state, f32 linear algebra, RODAS4 at rtol
 # 1e-6 under the lane refill, 256 members; the gates of
@@ -194,6 +221,14 @@ PLATE = dict(n=8, H=1024, seed=0)
 # the traced refill group: its first steps only (every eager operation is
 # a few events; a whole solve's trace runs to hundreds of MB)
 TRACE_RUN = dict(n=16, tf=0.005)
+# phase 10: the bench module's rows at N=256 with one timed run a row
+# (bench.py: N=1024, the headline and chunked rows the median of 3)
+BENCH_RUN = dict(N=256, runs=1)
+# the host pool beside the card: worker processes, torch threads each, and
+# the longest a phase waits for a worker's result
+HOST_WORKERS = 2
+HOST_THREADS = 2
+HOST_WAIT_S = 900
 
 
 def log(msg):
@@ -236,24 +271,6 @@ def chain_floor_ms(system, steps, maxiters, sm_clock_khz):
     ``sm_clock_khz``."""
     cycles = int(steps) * chain_ops(system, maxiters) * CYCLES_PER_CHAIN_OP
     return cycles / float(sm_clock_khz)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def bench_ensemble(g):
-    """The bench.py ensemble: seed 0, sigma 0.10 lognormal around the
-    default parameters, EGF (packed column 21) held fixed."""
-    rng = np.random.default_rng(0)
-    p0 = g.default_params(device="cpu").pack().numpy()
-    batch = p0[None, :] * np.exp(rng.normal(0.0, 0.10, size=(N, 24)))
-    batch[:, 21] = p0[21]
-    return batch
 
 
 def state_from_solution(sol, Nr):
@@ -597,21 +614,70 @@ def _final_C(sol):
     return sol.C[-1]
 
 
-def f64_reference(g, batch, dev):
-    """Final profiles of members 0-3 from tight f64 RODAS4 solves
-    (REF_TOL): the yardstick of phases 3 and 5."""
+def worker_init(parent, threads, cuda):
+    """Set-up of a pool worker: no CUDA device unless ``cuda``, ``threads``
+    torch threads (0: torch's default), and an exit as soon as the
+    script's process ``parent`` is gone (a daemon thread watches the
+    parent's pid)."""
+    import threading
+
+    if not cuda:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
     import torch
 
-    p64 = g.Params.unpack(torch.as_tensor(batch[:4], dtype=torch.float64,
-                                          device=dev))
+    if threads:
+        torch.set_num_threads(threads)
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def f64_reference(batch4, cfg, tol):
+    """Final profiles (numpy) of the members of ``batch4`` from tight f64
+    RODAS4 solves at ``tol`` on the host's CPU, and their wall in s: the
+    yardstick of phases 3, 5 and 9 (a host pool task)."""
+    import torch
+
+    import gab1_shp2_tpu_torch as g
+
     t0 = time.perf_counter()
-    ref = g.solve_stiff_batch(g.base_system(), g.default_co(device=dev), p64,
-                              device=dev, method="rodas4", dr=CFG["dr"],
-                              tf=CFG["tf"], Nts=CFG["Nts"], **REF_TOL)
-    torch.cuda.synchronize()
-    log(f"  f64 RODAS4 at rtol {REF_TOL['rtol']:g}, members 0-3: "
-        f"{time.perf_counter() - t0:.1f} s")
-    return ref.C[:, -1]
+    p64 = g.Params.unpack(torch.as_tensor(batch4, dtype=torch.float64))
+    ref = g.solve_stiff_batch(g.base_system(), g.default_co(device="cpu"),
+                              p64, device="cpu", method="rodas4",
+                              dr=cfg["dr"], tf=cfg["tf"], Nts=cfg["Nts"],
+                              **tol)
+    return ref.C[:, -1].numpy(), time.perf_counter() - t0
+
+
+def tight_reference(batch1, dr, tf):
+    """bench.tight_reference (solve_stiff, TRBDF2, f64, rtol 1e-8) of
+    member 0 on the host's CPU (numpy), and its wall in s (a host pool
+    task)."""
+    from gab1_shp2_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    Cref = bench.tight_reference(batch1, device="cpu", dr=dr, tf=tf)
+    return Cref.numpy(), time.perf_counter() - t0
+
+
+def plate_on_cpu(plate):
+    """Phase 9(e)'s CPU side (a host pool task): count_puncta over the
+    synthetic plate, identify_cells and count_puncta_per_cell of image 0
+    on the host's CPU; returns (count, mask, labels, per-cell counts,
+    wall in s), arrays as numpy."""
+    from gab1_shp2_tpu_torch.imaging import puncta
+
+    pla, cell, _ = synthetic_plate(**plate)
+    t0 = time.perf_counter()
+    res = puncta.count_puncta(pla, device="cpu")
+    labels = puncta.identify_cells(cell[0], device="cpu")
+    per_cell = puncta.count_puncta_per_cell(pla[0], cell[0], device="cpu")
+    return (res.count.numpy(), res.mask.numpy(), labels.numpy(), per_cell,
+            time.perf_counter() - t0)
 
 
 def phase3(g, batch, dev, Cref):
@@ -1079,6 +1145,31 @@ def phase7(g, dev):
     return read
 
 
+def phase8_beside(device, driver_args, driver_small):
+    """Phase 8 in a process of its own (a pool task), so that it runs on
+    ``device`` beside phase 7; the drivers' command lines are passed in
+    (module constants are this process's own).  Returns (each driver's
+    wall or None, the phase's wall in s, its log, the traceback's text or
+    None)."""
+    import contextlib
+    import io
+    import traceback
+
+    import torch
+
+    global DRIVER_ARGS, DRIVER_SMALL
+    DRIVER_ARGS, DRIVER_SMALL = driver_args, driver_small
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            walls = phase8(torch.device(device))
+    except Exception:
+        return (None, time.perf_counter() - t0, buf.getvalue(),
+                traceback.format_exc())
+    return walls, time.perf_counter() - t0, buf.getvalue(), None
+
+
 def _csv_rows(path):
     import csv
 
@@ -1231,8 +1322,8 @@ def phase8(dev):
                 raise RuntimeError(f"{label}: {tally['lost']} members lost")
             return out, buf.getvalue()
 
-        # run_base_model at --n 1000, then at a small configuration on the
-        # card and on the CPU
+        # run_base_model at its default --n, then at a small configuration
+        # on the card and on the CPU
         out, _ = run("run_base_model", "run_base_model",
                      DRIVER_ARGS["run_base_model"], "rbm")
         q = _finite_csv(f"{out}/pct_shp2_bound_gab1.csv", 1, 0)[0]
@@ -1345,24 +1436,25 @@ def phase9_mesh(g, batch, dev, p3):
     walls = {}
 
     # (a)
+    n = SHARD_N
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, ok = g.run_ensemble(system, Co32, pb, extract=_final_C,
-                             method="rodas4", chunk=CHUNK,
+    out, ok = g.run_ensemble(system, Co32, pb.k.new_tensor(batch[:n]),
+                             extract=_final_C, method="rodas4", chunk=CHUNK,
                              scheduler="refill", device_axis="ensemble",
                              mesh=two_slots, **CFG)
     torch.cuda.synchronize()
     walls["sharded_refill"] = time.perf_counter() - t0
     lost = int((~ok).sum())
-    rel = _relc(out, p3["out"], 1e-8)
-    log(f"  (a) sharded refill over 2 slots of cuda:0, {N} members, "
+    rel = _relc(out, p3["out"][:n], 1e-8)
+    log(f"  (a) sharded refill over 2 slots of cuda:0, {n} members, "
         f"{CHUNK} lanes a slot: {walls['sharded_refill']:.3f} s "
-        f"({N / walls['sharded_refill']:.2f} solves/s; phase 3 unsharded "
-        f"{p3['wall']:.3f} s); {lost} lost; max rel diff from phase 3 "
-        f"{rel:.3e}; outputs on {out.device}")
-    if out.shape[0] != N or lost:
+        f"({n / walls['sharded_refill']:.2f} solves/s; phase 3 unsharded, "
+        f"{N} members: {p3['wall']:.3f} s); {lost} lost; max rel diff from "
+        f"phase 3 {rel:.3e}; outputs on {out.device}")
+    if out.shape[0] != n or lost:
         raise RuntimeError(f"the sharded refill lost {lost} members")
-    if not torch.equal(ok, p3["ok"]):
+    if not torch.equal(ok, p3["ok"][:n]):
         raise RuntimeError("the sharded refill's ok mask differs")
     if not rel <= SHARD_REL:
         raise RuntimeError("the sharded refill is off phase 3's result")
@@ -1524,9 +1616,10 @@ def synthetic_plate(n, H, seed):
     return pla, cell, placed
 
 
-def phase9_imaging(dev):
-    """(e) puncta quantification of a 1024^2 plate on the card and on the
-    card machine's CPU: counts, masks and labels equal."""
+def phase9_imaging(dev, on_cpu):
+    """(e) puncta quantification of a 1024^2 plate on the card, against
+    ``on_cpu``, plate_on_cpu's result (the card machine's CPU): counts,
+    masks and labels equal."""
     import torch
     from gab1_shp2_tpu_torch.imaging import puncta
 
@@ -1534,25 +1627,25 @@ def phase9_imaging(dev):
     pla, cell, placed = synthetic_plate(**PLATE)
     log(f"  (e) plate: {PLATE['n']} x {PLATE['H']}^2 pixels made in "
         f"{time.perf_counter() - t0:.1f} s; puncta placed {placed}")
-    walls, got = {}, []
-    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = puncta.count_puncta(pla, device=where)
-        labels = puncta.identify_cells(cell[0], device=where)
-        per_cell = puncta.count_puncta_per_cell(pla[0], cell[0],
-                                                device=where)
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        got.append((res.count.cpu(), res.mask.cpu(), labels.cpu(),
-                    per_cell))
-        if res.mask.device.type != where.type:
-            raise RuntimeError(f"count_puncta ran on {res.mask.device}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = puncta.count_puncta(pla, device=dev)
+    labels = puncta.identify_cells(cell[0], device=dev)
+    per_cell = puncta.count_puncta_per_cell(pla[0], cell[0], device=dev)
+    torch.cuda.synchronize()
+    walls = {"card": time.perf_counter() - t0, "cpu": on_cpu[-1]}
+    if res.mask.device.type != dev.type:
+        raise RuntimeError(f"count_puncta ran on {res.mask.device}")
+    got = [(res.count.cpu(), res.mask.cpu(), labels.cpu(), per_cell),
+           tuple(torch.as_tensor(x) for x in on_cpu[:3]) + (on_cpu[3],)]
+    for name, (count, _, _, pc) in zip(("card", "cpu"), got):
         log(f"  (e) {name}: count_puncta over the plate, identify_cells "
-            f"and count_puncta_per_cell of image 0 in {walls[name]:.3f} s; "
-            f"counts {res.count.tolist()}; {len(per_cell.counts)} cells of "
-            f"image 0, puncta per cell {per_cell.counts.tolist()}, "
-            f"{per_cell.n_unassigned} unassigned")
+            f"and count_puncta_per_cell of image 0 in {walls[name]:.3f} s"
+            + (f" (a host worker, {HOST_THREADS} threads)"
+               if name == "cpu" else "")
+            + f"; counts {count.tolist()}; {len(pc.counts)} cells of image "
+            f"0, puncta per cell {pc.counts.tolist()}, {pc.n_unassigned} "
+            f"unassigned")
     (ca, ma, la, pa), (cb, mb, lb, pbc) = got
     same = (torch.equal(ca, cb) and torch.equal(ma, mb)
             and torch.equal(la, lb)
@@ -1602,16 +1695,69 @@ def phase9_trace(g, batch, dev):
     return wall
 
 
-def phase9(g, batch, dev, p3, Cref):
-    """The mesh, the mixed RHS, imaging and the trace on the card; each
-    step raises on failure."""
+def phase9(g, batch, dev, p3, Cref, plate):
+    """The mesh, the mixed RHS, imaging (``plate``: plate_on_cpu's result)
+    and the trace on the card; each step raises on failure."""
     walls, launches = phase9_mesh(g, batch, dev, p3)
     walls.update({f"rhs_mixed={k}": v
                   for k, v in phase9_mixed(g, batch, dev, Cref).items()})
     walls.update({f"imaging_{k}": v
-                  for k, v in phase9_imaging(dev).items()})
+                  for k, v in phase9_imaging(dev, plate).items()})
     walls["trace"] = phase9_trace(g, batch, dev)
     return walls, launches
+
+
+def phase10(dev, tight):
+    """The bench entry point at reduced depth: every row of
+    gab1_shp2_tpu_torch.bench against bench.py's tight reference
+    (``tight``: tight_reference's result, solved on the host's CPU), then
+    run_mesh over the card; raises on a failed gate."""
+    import torch
+    from gab1_shp2_tpu_torch import bench
+
+    Cref = torch.as_tensor(tight[0], device=dev)
+    walls = {"reference_cpu": tight[1]}
+    log(f"  reference (solve_stiff trbdf2, f64, rtol 1e-8, member 0; a host "
+        f"worker on the CPU, beside phases 0-9): {tight[1]:.3f} s")
+    line = bench.main(dev, Cref=Cref, **BENCH_RUN)
+    d = line["details"]
+    rows = {"headline": dict(d, solves_per_sec=line["value"]),
+            "chunked": d["chunked_scheduler"],
+            "north_star": d["north_star"], "gsa_config": d["gsa_config"]}
+    errs = {"headline": d["max_rel_err_vs_f64_rtol1e-8"],
+            "north_star": d["north_star"]["max_rel_err_vs_f64_rtol1e-8"],
+            "gsa_config": d["gsa_config"]["max_rel_err_vs_f64_rtol1e-8"]}
+    for name, r in rows.items():
+        walls[name] = r["wall_s"]
+        log(f"  {name}: {d['N']} members in {r['wall_s']:.3f} s = "
+            f"{r['solves_per_sec']:.3f} solves/s; {r['failed']} failed"
+            + (f"; member 0 vs the reference: max rel err {errs[name]:.3e}"
+               if name in errs else ""))
+    roof = d["roofline"]
+    log(f"  roofline: {roof['chunk_loop_steps']} chunk-loop steps, "
+        f"{roof['steps_per_sec']} steps/s, {roof['achieved_GBps_model']} "
+        f"GB/s modelled = {roof['pct_hbm_peak']}% of "
+        f"{roof['hbm_peak_GBps']} GB/s; {d['device']}, {d['power_limit']}")
+    mesh = bench.run_mesh()
+    m = mesh["details"]
+    walls["mesh"] = m["wall_s"]
+    log(f"  run_mesh: {m['N']} members over {m['devices']} card(s) in "
+        f"{m['wall_s']:.3f} s = {mesh['value']:.3f} solves/s; "
+        f"{m['failed']} failed; consistent with the single queue: "
+        f"{m['per_device_consistency_vs_single_queue']}")
+    for out in (line, mesh):
+        if json.loads(json.dumps(out)) != out:
+            raise RuntimeError("a bench line does not serialise")
+    failed = {n: r["failed"] for n, r in rows.items() if r["failed"]}
+    if failed or m["failed"]:
+        raise RuntimeError(f"members failed: {failed}, mesh {m['failed']}")
+    if not all(e <= ACCURACY_LIMIT for e in errs.values()):
+        raise RuntimeError(f"a row is off the reference: {errs}")
+    if not roof["pct_hbm_peak"] <= 100:
+        raise RuntimeError("the roofline reads above the HBM peak")
+    if not m["per_device_consistency_vs_single_queue"]:
+        raise RuntimeError("the sharded run disagrees with the single queue")
+    return walls
 
 
 def main():
@@ -1621,11 +1767,37 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    import gab1_shp2_tpu_torch  # noqa: F401  (raises outside the repo)
+
+    # a pool's context manager terminates and joins its workers
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(HOST_WORKERS, worker_init,
+                  (os.getpid(), HOST_THREADS, False)) as host, \
+            ctx.Pool(1, worker_init, (os.getpid(), 0, True)) as beside:
+        return smoke(host, beside)
+
+
+def smoke(host, beside):
+    """Phases 0-11 on the card, with ``host`` (a process pool on the
+    host's CPU) solving the references and the plate's CPU side beside
+    them, and ``beside`` (one process on the card) running phase 8 beside
+    phase 7; returns the exit status."""
+    import torch
+
     import gab1_shp2_tpu_torch as g
+    from gab1_shp2_tpu_torch.bench import bench_ensemble, card_line
     from gab1_shp2_tpu_torch.ops import _build, explicit_cuda, ros23_cuda
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
+    batch = bench_ensemble(N)
+    # the host's CPU tasks, started first; two workers take the first two,
+    # the plate goes to whichever is free first
+    on_host = dict(
+        ref=host.apply_async(f64_reference, (batch[:4], CFG, REF_TOL)),
+        tight=host.apply_async(tight_reference,
+                               (batch[:1], CFG["dr"], CFG["tf"])),
+        plate=host.apply_async(plate_on_cpu, (PLATE,)))
     card = card_line()
 
     t = time.perf_counter()
@@ -1649,7 +1821,6 @@ def main():
                     log(f"  ptxas: {line.strip()}")
     log(f"phase 0 wall {time.perf_counter() - t:.1f} s")
 
-    batch = bench_ensemble(g)
     rows = {}
     t = time.perf_counter()
     log("phase 1: fused Rosenbrock23 kernel vs ros23_step_plain, f32: "
@@ -1664,7 +1835,12 @@ def main():
 
     t = time.perf_counter()
     log("phase 3: f32 rodas4 lane-refill headline (eager), N=1024")
-    Cref = f64_reference(g, batch, dev)
+    t_wait = time.perf_counter()
+    C, wall = on_host["ref"].get(HOST_WAIT_S)
+    Cref = torch.as_tensor(C, device=dev)
+    log(f"  f64 RODAS4 at rtol {REF_TOL['rtol']:g}, members 0-3, on the "
+        f"host's CPU beside phases 0-2: {wall:.1f} s (waited "
+        f"{time.perf_counter() - t_wait:.1f} s here)")
     p3 = phase3(g, batch, dev, Cref)
     sps3 = p3["sps"]
     log(f"phase 3 wall {time.perf_counter() - t:.1f} s")
@@ -1688,23 +1864,36 @@ def main():
     log(f"phase 6 wall {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
+    drivers = beside.apply_async(phase8_beside,
+                                 ("cuda", DRIVER_ARGS, DRIVER_SMALL))
     log("phase 7: the single-member stiff solver and the inference path "
-        "(dr=0.2, tf=5, float64)")
+        "(dr=0.2, tf=5, float64), with phase 8 on the card beside it")
     inf = phase7(g, dev)
     log(f"phase 7 wall {time.perf_counter() - t:.1f} s")
 
-    t = time.perf_counter()
-    log("phase 8: the workload drivers, each through its main() on the card")
-    walls = phase8(dev)
-    log(f"phase 8 wall {time.perf_counter() - t:.1f} s")
+    log("phase 8: the workload drivers, each through its main() on the "
+        "card, in a process of its own beside phase 7")
+    walls, wall8, text, err = drivers.get(HOST_WAIT_S)
+    sys.stdout.write(text)
+    if err is not None:
+        raise RuntimeError(f"phase 8 failed:\n{err}")
+    log(f"phase 8 wall {wall8:.1f} s; phases 7-8 "
+        f"{time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     log("phase 9: the sharded ensemble over a mesh of the card's slots, the "
         "mixed-precision RHS, PLA imaging and the trace")
-    walls9, mesh_launches = phase9(g, batch, dev, p3, Cref)
+    walls9, mesh_launches = phase9(g, batch, dev, p3, Cref,
+                                   on_host["plate"].get(HOST_WAIT_S))
     log(f"phase 9 wall {time.perf_counter() - t:.1f} s")
 
-    log("phase 10: kernels")
+    t = time.perf_counter()
+    log("phase 10: the bench entry point (gab1_shp2_tpu_torch.bench), "
+        f"N={BENCH_RUN['N']}, one timed run a row, and run_mesh")
+    walls10 = phase10(dev, on_host["tight"].get(HOST_WAIT_S))
+    log(f"phase 10 wall {time.perf_counter() - t:.1f} s")
+
+    log("phase 11: kernels")
     kernels = [dict(
         name="ros23_step_fused", route="cuda",
         source="gab1_shp2_tpu_torch/csrc/ros23_step.cu",
@@ -1748,6 +1937,8 @@ def main():
         f"{k} {v:.2f}" for k, v in walls.items()))
     log(f"phase 9, wall s (first readings; {card}): " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls9.items()))
+    log(f"phase 10, wall s (first readings; {card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls10.items()))
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,12 +26,12 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 
 import torch
 
 import gab1_shp2_tpu_torch as tg
+from gab1_shp2_tpu_torch.bench import card_line
 from gab1_shp2_tpu_torch.inference import loss
 from gab1_shp2_tpu_torch.models.params import resolve_device
 from gab1_shp2_tpu_torch.ops.fwdgrad import value_and_fwd_grad
@@ -82,10 +82,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     out = dict(device=str(dev), card=None, bands_ms=bands_ms(dev))
     if dev.type == "cuda":
-        out["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True,
-            text=True).stdout.strip().splitlines()[0]
+        out["card"] = card_line()
 
     obs = loss.make_observable_fn(device=dev, dr=args.dr, tf=args.tf,
                                   rtol=1e-4, atol=1e-7, method=args.method)

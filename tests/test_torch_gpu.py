@@ -623,3 +623,28 @@ def test_trace_holds_kernel_events(cuda, tmp_path):
     with open(run.path) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+def test_bench_rows_on_the_card(cuda):
+    """gab1_shp2_tpu_torch.bench's rows at N=8 on the card through main()
+    at its default device, bench.py's tight reference included (dr=1,
+    tf=0.1: ~1,100 TRBDF2 steps), and run_mesh over every card."""
+    from gab1_shp2_tpu_torch import bench
+
+    small = dict(dr=1.0, tf=0.1, lanes=4)
+    line = bench.main(N=8, runs=1, **small)
+    d = line["details"]
+    assert d["backend"] == "cuda"
+    assert d["device"] == torch.cuda.get_device_name(0)
+    assert d["power_limit"].endswith("W")
+    for row in (d, d["chunked_scheduler"], d["north_star"],
+                d["gsa_config"]):
+        assert row["failed"] == 0
+    for row in (d, d["north_star"], d["gsa_config"]):
+        assert row["max_rel_err_vs_f64_rtol1e-8"] <= 1e-3
+    assert d["roofline"]["hbm_peak_GBps"] == 3350.0
+    assert d["roofline"]["pct_hbm_peak"] <= 100
+    mesh = bench.run_mesh(**small)["details"]
+    assert mesh["per_device_consistency_vs_single_queue"] is True
+    assert mesh["failed"] == 0
+    assert mesh["devices"] == torch.cuda.device_count()

@@ -190,6 +190,7 @@ def test_import_pulls_in_no_jax():
         "import gab1_shp2_tpu_torch.ops.df32\n"
         "import gab1_shp2_tpu_torch.ops.rhs_df32\n"
         "import gab1_shp2_tpu_torch.parallel.mesh\n"
+        "import gab1_shp2_tpu_torch.bench\n"
         "gab1_shp2_tpu_torch.inference.loss.prior_box()\n"
         "gab1_shp2_tpu_torch.workloads.common.get_ensemble(3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
