@@ -17,10 +17,16 @@ platform only) and the ``jit``/``lru_cache`` of compiled chunk solvers
 (eager torch has nothing to cache).  Passing ``scheduler`` with a solver
 other than ``"stiff"`` raises ``ValueError`` here; the JAX package
 ignores it.
+
+With ``utils.progress``'s recorder on, a call of :func:`run_ensemble` is
+a ``request`` span (and counts its ``members`` and ``members_failed``),
+and each ``solve_stiff_refill`` call of the refill dispatch a ``group``
+span under it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,6 +51,7 @@ from gab1_shp2_tpu_torch.parallel.mesh import (
     pad_to_multiple,
     run_sharded_batch,
 )
+from gab1_shp2_tpu_torch.utils import progress
 
 
 def _identity(sol):
@@ -70,6 +77,25 @@ def _extract_members(extract: Callable, sol: Solution):
     return torch.func.vmap(extract)(sol)
 
 
+def _recorded(run):
+    """``run`` as one ``request`` span when the recorder is on, which
+    counts the members and those returned not valid."""
+
+    @functools.wraps(run)
+    def request(*args, **kwargs):
+        rec = progress.RECORDER
+        if rec is None:
+            return run(*args, **kwargs)
+        with rec.span(progress.REQUEST):
+            out, valid = run(*args, **kwargs)
+            failed = int((~valid).sum())
+        rec.count(members=valid.numel(), members_failed=failed)
+        return out, valid
+
+    return request
+
+
+@_recorded
 def run_ensemble(
     system: ReactionDiffusionSystem,
     Co,
@@ -265,12 +291,17 @@ def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, kw,
     group = max(int(refill_group) if refill_group is not None else 4096,
                 min(lanes, N))
     co_shared = Co.ndim == 1
+    # a mesh's worker threads record their groups under the caller's span
+    rec = progress.RECORDER
+    up = None if rec is None else rec.current()
 
     def solve_group(co, p):
-        out, ok, _ = solve_stiff_refill(system, co, p, extract=extract,
-                                        device=p.k.device,
-                                        lanes=min(lanes, p.k.shape[0]),
-                                        **kw)
+        with (progress.NULL if rec is None
+              else rec.span("group", parent=up)):
+            out, ok, _ = solve_stiff_refill(system, co, p, extract=extract,
+                                            device=p.k.device,
+                                            lanes=min(lanes, p.k.shape[0]),
+                                            **kw)
         return out, ok
 
     D = 1 if mesh is None else mesh.size

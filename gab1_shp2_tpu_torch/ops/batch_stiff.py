@@ -11,10 +11,11 @@ axis is the minor dimension of every array:
 
 The JAX ``while_loop``/``cond`` constructs become host loops whose
 conditions are device-side reductions read by the host once per
-iteration.  Both schedulers — the chunked :func:`solve_stiff_batch` and
-the lane-refill :func:`solve_stiff_refill` — share one copy of the step
-arithmetic (:class:`_SolverCtx`), so a member's step sequence does not
-depend on the scheduler that runs it.
+iteration, each through ``utils.progress.host_read``.  Both schedulers
+— the chunked :func:`solve_stiff_batch` and the lane-refill
+:func:`solve_stiff_refill` — share one copy of the step arithmetic
+(:class:`_SolverCtx`), so a member's step sequence does not depend on
+the scheduler that runs it.
 
 ``step_impl`` names map onto the JAX package's: ``"torch"`` is JAX's
 ``"xla"`` (the unfused eager step) and ``"fused"`` is JAX's ``"pallas"``
@@ -26,6 +27,13 @@ float32 pairs: ``"df32"`` with the compensated arithmetic of
 ``ops/rhs_df32.py`` (~2^-48 of the float64 RHS), ``True`` as a
 jvp-corrected hi/lo split (~1e-7 floor).  The JAX package added both
 because the TPU emulates float64; native float64 stays the default.
+
+A solve started while ``utils.progress``'s recorder is on records, in
+layers: the refill loop's ``iteration`` and ``harvest`` spans and its
+counters, the ``step`` and its ``dense_output``, and the kernel-layer
+pieces ``rhs``, ``bands``, ``factor`` and ``solve``.  Whether to record
+is decided when the solve's :class:`_SolverCtx` is made; a solve that
+is not recorded runs the plain methods and closures.
 """
 
 from __future__ import annotations
@@ -65,6 +73,8 @@ from gab1_shp2_tpu_torch.ops.trbdf2 import (
     _ROW_TABLEAUS,
     _row_step,
 )
+from gab1_shp2_tpu_torch.utils import progress
+from gab1_shp2_tpu_torch.utils.progress import host_read
 
 # ---------------------------------------------------------------------------
 # lane-minor small linear algebra
@@ -288,6 +298,8 @@ class _SolverCtx:
 
     ntol = 0.03
     newton_iters = 6
+    # the methods recorded as spans of their names when the recorder is on
+    RECORDED = ("step", "dense_output", "bands", "factor", "solve")
 
     def __init__(self, system, R, dr, Nts, rtol, atol, tf_total, dtype,
                  device, linsolve_dtype, method, step_impl, rhs_mixed=False):
@@ -318,6 +330,16 @@ class _SolverCtx:
         if step_impl == "fused":
             from gab1_shp2_tpu_torch.ops.ros23_cuda import ros23_step_fused
             self._fused = ros23_step_fused
+        # the recorder switched on when the solve starts records all of it
+        self.rec = progress.RECORDER
+        if self.rec is not None:
+            for name in self.RECORDED:
+                setattr(self, name, self.rec.wrap(name, getattr(self, name)))
+
+    def span(self, name: str):
+        """The block as the recorder's span ``name``, or nothing when the
+        solve is not recorded."""
+        return progress.NULL if self.rec is None else self.rec.span(name)
 
     # --- per-lane parameter views -------------------------------------
     def lane_params(self, p: Params) -> _LaneParams:
@@ -333,13 +355,18 @@ class _SolverCtx:
                            k_packed=p.k.contiguous(), p=p)
 
     def make_f(self, lp: _LaneParams):
-        """The lane-batched RHS closed over the lane parameters."""
+        """The lane-batched RHS closed over the lane parameters (each
+        call an ``rhs`` span when the solve is recorded)."""
         system, rj, dr = self.system, self.rj, self.dr
         if self.rhs_mixed == "df32":
-            return lambda y: self._f_df32(y, lp.p)
-        if self.rhs_mixed:
-            return self._jvp_split_f(lp)
-        return lambda y: lane_rhs(system, y, lp.k, lp.d_eff, rj, dr)
+            def f(y):
+                return self._f_df32(y, lp.p)
+        elif self.rhs_mixed:
+            f = self._jvp_split_f(lp)
+        else:
+            def f(y):
+                return lane_rhs(system, y, lp.k, lp.d_eff, rj, dr)
+        return f if self.rec is None else self.rec.wrap("rhs", f)
 
     def _jvp_split_f(self, lp: _LaneParams):
         """The double-single RHS: y splits into an f32 hi part and an f32
@@ -399,7 +426,8 @@ class _SolverCtx:
         dn = torch.full((y.shape[-1],), float("inf"), dtype=self.dtype,
                         device=y.device)
         it = 0
-        while it < self.newton_iters and bool((dn > self.ntol).any()):
+        while (it < self.newton_iters
+               and host_read((dn > self.ntol).any())):
             Gv = y - A * h * f(y) - rhs_const
             dy = self.solve(fac, -Gv)
             ynew = y + dy
@@ -418,7 +446,7 @@ class _SolverCtx:
         optionally supplies cached bands (the TRBDF2 ``jac_reuse`` path),
         otherwise they are rebuilt from ``y``.  Returns ``(updated state,
         per-lane step-success flags)``."""
-        method, ls, dtype = self.method, self.ls_dtype, self.dtype
+        method, ls = self.method, self.ls_dtype
         t, h_carry, y = st.t, st.h, st.y
         # step size: truncated to the leg end for active lanes, a
         # harmless dummy for finished lanes (their carried h is kept)
@@ -491,9 +519,22 @@ class _SolverCtx:
         h_prop = torch.where(torch.isfinite(h_prop), h_prop, h * 0.3)
         h_new = torch.where(active, h_prop, h_carry)
         failed = st.failed | (active & (h_new < 1e-13 * self.tf_total))
+        nts, out_C, out_m = self.dense_output(f, lp, st, h, accept, t_new,
+                                              f_n, y_1, f_1)
+        nacc = st.nacc + accept.to(torch.int32)
+        nrej = st.nrej + (active & ~accept).to(torch.int32)
+        return LaneState(t_new, h_new, y_new, nts, out_C, out_m, nacc, nrej,
+                         failed), ok
 
-        # dense output: per-lane save slots by masked one-hot writes
-        Nts, dt_save, eps = self.Nts, self.dt_save, self.eps
+    def dense_output(self, f, lp: _LaneParams, st: LaneState, h, accept,
+                     t_new, f_n, y_1, f_1):
+        """The save points the accepted steps crossed, written by Hermite
+        interpolation from ``st`` (at ``st.t``, step ``h``) to ``y_1``:
+        per-lane save slots by masked one-hot writes.  ``f_1`` is
+        f(y_1), or None to evaluate it only if some save is due.
+        Returns ``(nts, out_C, out_m)``."""
+        Nts, dt_save, eps, dtype = self.Nts, self.dt_save, self.eps, self.dtype
+        t, y = st.t, st.y
 
         def writes(nts_i):
             return (accept & (nts_i <= Nts)
@@ -501,31 +542,27 @@ class _SolverCtx:
 
         nts, out_C, out_m = st.nts, st.out_C, st.out_m
         write = writes(nts)
-        if bool(write.any()):
-            f_end = f(y_1) if f_1 is None else f_1
-            while True:
-                ts = nts.to(dtype) * dt_save
-                th = torch.where(h > 0, (ts - t) / h, 0.0)
-                h00 = 2 * th**3 - 3 * th**2 + 1
-                h10 = th**3 - 2 * th**2 + th
-                h01 = -2 * th**3 + 3 * th**2
-                h11 = th**3 - th**2
-                y_s = (h00 * y + (h10 * h) * f_n + h01 * y_1
-                       + (h11 * h) * f_end)
-                Cs, ms = self.snapshot(y_s, lp)
-                wmask = (self.slot_ids[:, None] == nts[None, :]) \
-                    & write[None, :]
-                out_C = torch.where(wmask[:, None, None, :], Cs[None], out_C)
-                out_m = torch.where(wmask[:, None, :], ms[None], out_m)
-                nts = nts + write.to(torch.int32)
-                write = writes(nts)
-                if not bool(write.any()):
-                    break
-
-        nacc = st.nacc + accept.to(torch.int32)
-        nrej = st.nrej + (active & ~accept).to(torch.int32)
-        return LaneState(t_new, h_new, y_new, nts, out_C, out_m, nacc, nrej,
-                         failed), ok
+        if not host_read(write.any()):
+            return nts, out_C, out_m
+        f_end = f(y_1) if f_1 is None else f_1
+        while True:
+            ts = nts.to(dtype) * dt_save
+            th = torch.where(h > 0, (ts - t) / h, 0.0)
+            h00 = 2 * th**3 - 3 * th**2 + 1
+            h10 = th**3 - 2 * th**2 + th
+            h01 = -2 * th**3 + 3 * th**2
+            h11 = th**3 - th**2
+            y_s = (h00 * y + (h10 * h) * f_n + h01 * y_1
+                   + (h11 * h) * f_end)
+            Cs, ms = self.snapshot(y_s, lp)
+            wmask = (self.slot_ids[:, None] == nts[None, :]) \
+                & write[None, :]
+            out_C = torch.where(wmask[:, None, None, :], Cs[None], out_C)
+            out_m = torch.where(wmask[:, None, :], ms[None], out_m)
+            nts = nts + write.to(torch.int32)
+            write = writes(nts)
+            if not host_read(write.any()):
+                return nts, out_C, out_m
 
 
 # band age (accepted or rejected steps) that forces a refresh under
@@ -579,7 +616,7 @@ def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
         while True:
             running = ((st.t < t1 - eps) & ~st.failed
                        & (st.nacc + st.nrej < max_steps))
-            if not bool(running.any()):
+            if not host_read(running.any()):
                 break
             active = st.t < t1 - eps
             if reuse and (want_refresh or j_age >= JAC_MAX_AGE):
@@ -587,7 +624,7 @@ def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
             st, ok = ctx.step(f, lp, t1, active, st, jac=jac)
             if reuse:
                 # a Newton failure invalidates the (possibly stale) J
-                want_refresh = bool((active & ~ok).any())
+                want_refresh = host_read((active & ~ok).any())
                 j_age += 1
     failed = st.failed | (st.nts <= Nts)
 
@@ -670,51 +707,68 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
     ok_all = torch.zeros(N, dtype=torch.bool, device=dev)
     steps_all = torch.zeros(N, **i32)
 
+    # with the recorder on: the accepted steps of the harvested lanes,
+    # summed on the device and read with the step counts after the loop
+    rec = ctx.rec
+    accepted = None if rec is None else torch.zeros((), dtype=torch.int64,
+                                                    device=dev)
     it, n_done, next_ptr = 0, 0, B
     while n_done < N:
-        active = lane_pending(live, st)
-        if t_prechase is None:
-            p_eff, t1 = p_l, tf
-        else:
-            in2 = st.t >= t_prechase - eps
-            p_eff = Params(D=torch.where(in2[:, None], p2_l.D, p_l.D),
-                           k=torch.where(in2[:, None], p2_l.k, p_l.k))
-            t1 = torch.where(in2, torch.full_like(st.t, tf),
-                             torch.full_like(st.t, t_prechase))
-        lp = ctx.lane_params(p_eff)
-        st, _ = ctx.step(ctx.make_f(lp), lp, t1, active, st)
-        still = lane_pending(live, st)
-        finished = live & ~still
-        if bool(finished.any()) and (it % K == K - 1
-                                     or not bool(still.any())):
-            vals, sol = extract_lanes(st.out_C, st.out_m, Co_l)
-            # incomplete saves count as failure (chunked-path semantics)
-            failed_h = st.failed | (st.nts <= Nts)
-            okl = ~failed_h & torch.isfinite(sol.C[:, -1]).all(dim=-1).all(
-                dim=-1)
-            idx = member[finished]
-            for buf, v in zip(pytree.tree_leaves(out_all),
-                              pytree.tree_leaves(vals)):
-                buf[idx] = v[finished].to(buf.dtype)
-            ok_all[idx] = okl[finished]
-            steps_all[idx] = (st.nacc + st.nrej)[finished]
-            nf = int(finished.sum())
-            ranks = torch.cumsum(finished.to(torch.int64), 0) - 1
-            member = torch.where(finished, next_ptr + ranks, member)
-            live_f, Co_f, p_f, p2_f, st_f = fresh(member)
-            sel_r = finished[:, None]
-            Co_l = torch.where(sel_r, Co_f, Co_l)
-            p_l = Params(D=torch.where(sel_r, p_f.D, p_l.D),
-                         k=torch.where(sel_r, p_f.k, p_l.k))
-            if p2_l is not None:
-                p2_l = Params(D=torch.where(sel_r, p2_f.D, p2_l.D),
-                              k=torch.where(sel_r, p2_f.k, p2_l.k))
-            st = LaneState(*(where_lanes(finished, a_f, a)
-                             for a_f, a in zip(st_f, st)))
-            live = torch.where(finished, live_f, live)
-            n_done += nf
-            next_ptr += nf
-        it += 1
+        with ctx.span(progress.ITERATION):
+            if rec is not None:
+                rec.count(iterations=1, lane_slots=B)
+            active = lane_pending(live, st)
+            if t_prechase is None:
+                p_eff, t1 = p_l, tf
+            else:
+                in2 = st.t >= t_prechase - eps
+                p_eff = Params(D=torch.where(in2[:, None], p2_l.D, p_l.D),
+                               k=torch.where(in2[:, None], p2_l.k, p_l.k))
+                t1 = torch.where(in2, torch.full_like(st.t, tf),
+                                 torch.full_like(st.t, t_prechase))
+            lp = ctx.lane_params(p_eff)
+            st, _ = ctx.step(ctx.make_f(lp), lp, t1, active, st)
+            still = lane_pending(live, st)
+            finished = live & ~still
+            if host_read(finished.any()) and (
+                    it % K == K - 1 or not host_read(still.any())):
+                with ctx.span("harvest"):
+                    vals, sol = extract_lanes(st.out_C, st.out_m, Co_l)
+                    # incomplete saves count as failure (chunked-path
+                    # semantics)
+                    failed_h = st.failed | (st.nts <= Nts)
+                    okl = ~failed_h & torch.isfinite(
+                        sol.C[:, -1]).all(dim=-1).all(dim=-1)
+                    idx = member[finished]
+                    for buf, v in zip(pytree.tree_leaves(out_all),
+                                      pytree.tree_leaves(vals)):
+                        buf[idx] = v[finished].to(buf.dtype)
+                    ok_all[idx] = okl[finished]
+                    steps_all[idx] = (st.nacc + st.nrej)[finished]
+                    if rec is not None:
+                        rec.count(harvests=1)
+                        accepted = accepted + torch.where(
+                            finished, st.nacc, 0).sum()
+                    nf = host_read(finished.sum(), int)
+                    ranks = torch.cumsum(finished.to(torch.int64), 0) - 1
+                    member = torch.where(finished, next_ptr + ranks, member)
+                    live_f, Co_f, p_f, p2_f, st_f = fresh(member)
+                    sel_r = finished[:, None]
+                    Co_l = torch.where(sel_r, Co_f, Co_l)
+                    p_l = Params(D=torch.where(sel_r, p_f.D, p_l.D),
+                                 k=torch.where(sel_r, p_f.k, p_l.k))
+                    if p2_l is not None:
+                        p2_l = Params(D=torch.where(sel_r, p2_f.D, p2_l.D),
+                                      k=torch.where(sel_r, p2_f.k, p2_l.k))
+                    st = LaneState(*(where_lanes(finished, a_f, a)
+                                     for a_f, a in zip(st_f, st)))
+                    live = torch.where(finished, live_f, live)
+                    n_done += nf
+                    next_ptr += nf
+            it += 1
+    if rec is not None:
+        steps, acc = torch.stack([steps_all.sum(), accepted]).tolist()
+        rec.count(active_lane_steps=steps, accepted_steps=acc)
     return out_all, ok_all, steps_all
 
 
