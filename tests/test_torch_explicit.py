@@ -115,7 +115,7 @@ def test_no_egf_keeps_iterating_on_nan():
     """EGF=0: the relative change of the untouched species is 0/0 = NaN,
     which must keep the fixed point iterating, not end it
     (``tests/test_explicit.py::test_egf_drives_activation``)."""
-    kw = dict(dr=0.4, tf=0.5, Nts=2, tol=1e-4, maxiters=20)
+    kw = dict(dr=0.5, tf=0.5, Nts=2, tol=1e-4, maxiters=20)
     ts = _tsolve(tg.base_system(), params=_tparams().replace(EGF=0.0), **kw)
     assert float(ts.pE.max()) == 0.0
     assert float(ts.cyto("aSFK").max()) == 0.0

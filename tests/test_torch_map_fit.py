@@ -1,5 +1,5 @@
 """The port's multistart MAP fit against the JAX package's global stage,
-and TestMAPFit's criteria (tests/test_inference.py).
+and LBFGS through the stiff solve.
 
 The global stage takes TestMAPFit's arguments (16 Sobol starts, seed 1,
 dr_coarse=0.5, rtol 1e-3): the same scrambled starts (within 1e-15;
@@ -12,14 +12,13 @@ for 10 iterations, then 10 at dr_fine=0.4) takes tens of minutes in the
 eager port on a CPU: its best starts lie at the loss floor (chi^2
 ~0.0016), where LBFGS's first step is the gradient itself (optax's
 initial scale min(1, 1/|g|)) and the zoom line search doubles it about
-a dozen times, each a value-and-gradient solve.  The criteria run here
-on FIT_ARGS instead: 2 starts (seed 123, losses 5.94 and 0.025, off the
-floor), LBFGS from both for one iteration, then one at dr_fine=0.4 (7
-value-and-gradient solves): a finite loss strictly below the
-best start's and below 0.05, positive fitted values.  The same fit
-against the JAX package's map_fit is in tests/test_torch_map_fit_jax.py.
-LBFGS through the stiff solve from a poor start is below, its iterates
-against optax in tests/test_torch_inference.py.
+a dozen times, each a value-and-gradient solve.  TestMAPFit's criteria
+run instead on the fit of tests/test_torch_map_fit_jax.py: 2 starts
+(seed 123, losses 5.98 and 0.022 at dr_coarse=1, off the floor), LBFGS
+from both for one iteration, then one at dr_fine=0.5, the fit that file
+holds against the JAX package's map_fit.  LBFGS through the stiff solve
+from a poor start is below, its iterates against optax in
+tests/test_torch_inference.py.
 """
 
 import jax
@@ -39,8 +38,6 @@ from gab1_shp2_tpu_torch.inference.map_fit import lbfgs_minimize, map_fit
 torch.set_num_threads(2)
 
 ARGS = dict(n_starts=16, decades=2.0, dr_coarse=0.5, rtol=1e-3, seed=1)
-FIT_ARGS = dict(n_starts=2, n_local=2, max_iters=1, dr_coarse=0.5,
-                dr_fine=0.4, rtol=1e-3, seed=123)
 
 
 @pytest.fixture(scope="module")
@@ -63,25 +60,12 @@ def jax_global_stage():
 
 def test_global_stage_matches_jax(jax_global_stage):
     # the global stage, and no LBFGS iteration after it
-    port = map_fit(device="cpu", n_local=1, max_iters=0, dr_fine=0.4,
+    port = map_fit(device="cpu", n_local=1, max_iters=0, dr_fine=0.5,
                    **ARGS)
     starts, losses = jax_global_stage
     np.testing.assert_allclose(port.starts, starts, rtol=1e-15, atol=0)
     assert np.isfinite(losses).all()
     np.testing.assert_allclose(port.start_losses, losses, rtol=1e-9)
-
-
-def test_map_fit_criteria():
-    res = map_fit(device="cpu", **FIT_ARGS)
-    assert np.isfinite(res.loss)
-    # the iterations lowered the loss below the best start's
-    assert res.loss < np.nanmin(res.start_losses) - 1e-3
-    assert res.loss < 0.05
-    for n in FIT_NAMES:
-        assert res.values[n] > 0
-    np.testing.assert_allclose(np.exp(res.log_k4),
-                               [res.values[n] for n in FIT_NAMES],
-                               rtol=1e-15)
 
 
 def test_lbfgs_through_the_stiff_solve():

@@ -216,7 +216,7 @@ def test_launch_count_survives_threads():
     is lost."""
     old = sys.getswitchinterval()
     before = ros23_cuda.LAUNCHES
-    n_threads, per_thread = 32, 2000
+    n_threads, per_thread, join_s = 32, 2000, 60
     try:
         sys.setswitchinterval(1e-6)
         threads = [threading.Thread(target=lambda: [
@@ -225,8 +225,10 @@ def test_launch_count_survives_threads():
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=60)
-        assert not any(t.is_alive() for t in threads)
+            t.join(timeout=join_s)
+        hung = sum(t.is_alive() for t in threads)
+        assert not hung, (f"{hung} of {n_threads} count_launch threads "
+                          f"still running after the {join_s} s join limit")
     finally:
         sys.setswitchinterval(old)
     assert ros23_cuda.LAUNCHES - before == n_threads * per_thread

@@ -200,6 +200,11 @@ def test_import_pulls_in_no_jax():
         "assert 'gab1_shp2_tpu_torch' in sys.modules\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+    limit_s = 120
+    try:
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"the import check's interpreter did not exit within "
+                    f"its {limit_s} s limit")
     assert out.returncode == 0, out.stdout + out.stderr

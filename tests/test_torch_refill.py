@@ -50,7 +50,7 @@ def _chunked_and_refill(P, lanes, harvest_every, **kw):
 
 def test_matches_chunked():
     solb, statb, out, ok, steps = _chunked_and_refill(
-        _ensemble(10, 0.3, 5), lanes=4, harvest_every=3, **KW)
+        _ensemble(8, 0.3, 5), lanes=4, harvest_every=3, **KW)
     np.testing.assert_array_equal(
         steps.numpy(), (statb.n_accepted + statb.n_rejected).numpy())
     np.testing.assert_allclose(out.C.numpy(), solb.C.numpy(), rtol=1e-12,
@@ -65,7 +65,7 @@ def test_two_leg_pulse_chase_matches_chunked():
     staggered iterations, yet each member's steps match the chunked
     two-leg integrator's."""
     solb, statb, out, ok, steps = _chunked_and_refill(
-        _ensemble(9, 0.3, 11), lanes=3, harvest_every=3,
+        _ensemble(8, 0.3, 11), lanes=3, harvest_every=3,
         **dict(KW, Nts=4, t_prechase=0.5))
     np.testing.assert_array_equal(
         steps.numpy(), (statb.n_accepted + statb.n_rejected).numpy())

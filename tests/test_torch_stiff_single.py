@@ -13,6 +13,8 @@ bound of tests/test_batch_stiff.py::test_jac_reuse_accuracy (5e-4
 relative to |C| + 1e-6), and to the port's fresh-Jacobian solve.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,21 +76,35 @@ def _dominant(rng, shape, n=10):
     return A + n * np.eye(n)
 
 
+@partial(jax.jit, static_argnames="pivoting")
+def _j_gauss_jordan(A, B, pivoting):
+    return (j_lu.gauss_jordan_solve(A, B, pivoting=pivoting),
+            j_lu.inv_small(A, pivoting=pivoting))
+
+
 @pytest.mark.parametrize("pivoting", [False, True])
 def test_gauss_jordan_and_inverse(pivoting):
     rng = np.random.default_rng(0)
     A = rng.normal(size=(6, 10, 10)) + (0.0 if pivoting else 10 * np.eye(10))
     B = rng.normal(size=(6, 10, 3))
-    want = j_lu.gauss_jordan_solve(jnp.asarray(A), jnp.asarray(B),
-                                   pivoting=pivoting)
+    want, inv_j = _j_gauss_jordan(jnp.asarray(A), jnp.asarray(B),
+                                  pivoting=pivoting)
     got = t_lu.gauss_jordan_solve(torch.as_tensor(A), torch.as_tensor(B),
                                   pivoting=pivoting)
     assert _rel(got.numpy(), want) < 1e-12
-    inv_j = j_lu.inv_small(jnp.asarray(A), pivoting=pivoting)
     inv_t = t_lu.inv_small(torch.as_tensor(A), pivoting=pivoting)
     assert _rel(inv_t.numpy(), inv_j) < 1e-12
     assert _rel(A @ inv_t.numpy(), np.broadcast_to(np.eye(10), A.shape)) \
         < 1e-12
+
+
+@jax.jit
+def _j_block_solves(L, D, U, b):
+    """The JAX package's block Thomas solve, its matvec, and block cyclic
+    reduction's factor and solve, as one program."""
+    x_bt = j_bt.bt_solve(j_bt.bt_factor(L, D, U), b)
+    fac = j_cr.cr_factor(L, D, U)
+    return x_bt, j_bt.bt_matvec(L, D, U, x_bt), fac, j_cr.cr_solve(fac, b)
 
 
 @pytest.mark.parametrize("NB", [7, 8])
@@ -101,26 +117,24 @@ def test_block_thomas_and_cyclic_reduction(NB):
     Lj, Dj, Uj, bj = map(jnp.asarray, (L, D, U, b))
     Lt, Dt, Ut, bt = map(torch.as_tensor, (L, D, U, b))
 
-    x_bt_j = j_bt.bt_solve(j_bt.bt_factor(Lj, Dj, Uj), bj)
+    x_bt_j, mv_j, fac_j, x_cr_j = _j_block_solves(Lj, Dj, Uj, bj)
     x_bt_t = t_bt.bt_solve(t_bt.bt_factor(Lt, Dt, Ut), bt)
     assert _rel(x_bt_t.numpy(), x_bt_j) < 1e-12
-    assert _rel(t_bt.bt_matvec(Lt, Dt, Ut, x_bt_t).numpy(),
-                j_bt.bt_matvec(Lj, Dj, Uj, x_bt_j)) < 1e-12
+    assert _rel(t_bt.bt_matvec(Lt, Dt, Ut, x_bt_t).numpy(), mv_j) < 1e-12
     # the solve inverts the matvec (L[0] and U[-1] are ignored by both)
     Lt0 = torch.cat([torch.zeros_like(Lt[:1]), Lt[1:]])
     Ut0 = torch.cat([Ut[:-1], torch.zeros_like(Ut[:1])])
     assert _rel(t_bt.bt_matvec(Lt0, Dt, Ut0, x_bt_t).numpy(), b) < 1e-12
 
-    fac_j = j_cr.cr_factor(Lj, Dj, Uj)
     fac_t = t_cr.cr_factor(Lt, Dt, Ut)
     assert len(fac_t.levels) == len(fac_j.levels)
     for lt, lj in zip(fac_t.levels, fac_j.levels):
-        assert lt.n_blocks == lj.n_blocks
+        assert lt.n_blocks == int(lj.n_blocks)
         for name in ("Dinv_odd", "L_odd", "U_odd", "LDinv", "UDinv"):
             assert _rel(getattr(lt, name).numpy(), getattr(lj, name)) \
                 < 1e-12, name
     x_cr_t = t_cr.cr_solve(fac_t, bt)
-    assert _rel(x_cr_t.numpy(), j_cr.cr_solve(fac_j, bj)) < 1e-12
+    assert _rel(x_cr_t.numpy(), x_cr_j) < 1e-12
     assert _rel(x_cr_t.numpy(), x_bt_t.numpy()) < 1e-12
 
 
@@ -136,11 +150,13 @@ def test_pad_pow2():
 
 @pytest.fixture(scope="module")
 def jac_case():
-    """A mid-transient state (the JAX solve at t=0.2) and both packages'
-    block right-hand sides at dr=1."""
+    """A mid-transient state (the JAX solve at t=0.2) at dr=1.  The solve
+    has the static arguments of ``jax_solves``' trbdf2 case, so the two
+    share one compiled program."""
     dr = 1.0
     sol = j_solve(jg.base_system(), jg.default_co(), jg.default_params(),
-                  dr=dr, tf=0.2, Nts=1, rtol=1e-6, atol=1e-9)
+                  dr=dr, tf=0.2, Nts=KW["Nts"], rtol=1e-6, atol=1e-9,
+                  method="trbdf2")
     C = np.asarray(sol.C[-1])
     m = np.asarray(sol.m[-1])
     yb = np.asarray(j_jac.state_to_blocks(jnp.asarray(C[:, 1:-1]),
@@ -170,7 +186,9 @@ def test_block_jacobian(jac_case):
     ft, r = t_rhs_blocks(tg.base_system(), 10.0, dr)
     pj = jg.default_params()
     pt = tg.default_params(device="cpu")
-    want = j_jac.block_jacobian(lambda y: fj(y, pj), jnp.asarray(yb))
+    want, f_j = jax.jit(lambda y: (
+        j_jac.block_jacobian(lambda v: fj(v, pj), y), fj(y, pj)))(
+        jnp.asarray(yb))
     got = t_jac.block_jacobian(lambda y: ft(y, pt), torch.as_tensor(yb))
     fast = t_jac.fast_block_jacobian_lanes(
         tg.base_system(), torch.as_tensor(yb)[..., None],
@@ -179,8 +197,7 @@ def test_block_jacobian(jac_case):
         assert _rel(g.numpy(), w) < 1e-12
         assert _rel(f[..., 0].numpy(), g.numpy()) < 1e-12
     # and the block right-hand side itself
-    assert _rel(ft(torch.as_tensor(yb), pt).numpy(),
-                fj(jnp.asarray(yb), pj)) < 1e-12
+    assert _rel(ft(torch.as_tensor(yb), pt).numpy(), f_j) < 1e-12
 
 
 def test_block_jacobian_lanes(jac_case):
@@ -195,7 +212,7 @@ def test_block_jacobian_lanes(jac_case):
     fj, _ = j_rhs_lanes(jg.base_system(), 10.0, dr)
     ft, r = t_rhs_lanes(tg.base_system(), 10.0, dr)
     pj, pt = JParams.unpack(jnp.asarray(P)), TParams.unpack(torch.as_tensor(P))
-    want = j_bjl(lambda v: fj(v, pj), jnp.asarray(y))
+    want = jax.jit(lambda y: j_bjl(lambda v: fj(v, pj), y))(jnp.asarray(y))
     got = t_bjl(lambda v: ft(v, pt), torch.as_tensor(y))
     fast = t_jac.fast_block_jacobian_lanes(tg.base_system(),
                                            torch.as_tensor(y), pt, r, dr)

@@ -264,7 +264,7 @@ def test_threads_lose_no_span_or_count():
     import sys
     import threading
 
-    n_threads, n_spans = 16, 200
+    n_threads, n_spans, join_s = 16, 200, 60
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -280,8 +280,11 @@ def test_threads_lose_no_span_or_count():
             for t in threads:
                 t.start()
             for t in threads:
-                t.join(timeout=60)
-            assert not any(t.is_alive() for t in threads)
+                t.join(timeout=join_s)
+            hung = sum(t.is_alive() for t in threads)
+            assert not hung, (f"{hung} of {n_threads} recording threads "
+                              f"still running after the {join_s} s join "
+                              f"limit")
     finally:
         sys.setswitchinterval(switch)
     r = rec.read()
