@@ -2,12 +2,13 @@
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from harness import check, spec, window
+from harness import check, recording, spec, window
 
 # the profiled sub-window: loop iterations [PROFILE_FROM, PROFILE_FROM +
 # PROFILE_ITERS) of the window, counted from its first request's start
@@ -18,9 +19,28 @@ WARMUP_TF_SHARE = 0.01
 
 
 def final_state(sol):
-    """What every request keeps of a member: its final bulk profile
-    (10, Nr+1) and membrane state (8,)."""
+    """What a request keeps of a member by default: its final bulk
+    profile (10, Nr+1) and membrane state (8,)."""
     return sol.C[-1], sol.m[-1]
+
+
+def trajectory(sol):
+    """What a request keeps of a member under ``"keep": "trajectory"``:
+    its bulk profiles (Nts+1, 10, Nr+1) and membrane states (Nts+1, 8)
+    at every save time, as the drivers' dense jobs keep them."""
+    return sol.C, sol.m
+
+
+# what a request keeps of each member, by the traffic file's "keep"
+KEEP = dict(final=final_state, trajectory=trajectory)
+
+
+def keep(cell) -> str:
+    """The traffic's ``keep``: "final" when it names none."""
+    name = cell.traffic.get("keep", "final")
+    if name not in KEEP:
+        raise ValueError(f"keep {name!r}: not one of {sorted(KEEP)}")
+    return name
 
 
 def _dtype(name):
@@ -43,6 +63,7 @@ def run_cell(cell, *, seed, seconds, trace, control, device, t_start):
     import gab1_shp2_tpu_torch as port
     from gab1_shp2_tpu_torch.ensemble.engine import run_ensemble
     from gab1_shp2_tpu_torch.ops.batch_stiff import _SolverCtx
+    from gab1_shp2_tpu_torch.utils import progress
 
     from harness.traffic import Requests
 
@@ -64,7 +85,7 @@ def run_cell(cell, *, seed, seconds, trace, control, device, t_start):
               chunk=int(cfg["lanes"]), R=float(cfg["R"]),
               dr=float(cfg["dr"]), Nts=int(cell.traffic["Nts"]),
               linsolve_dtype=_dtype(prog["linsolve_dtype"]), device=dev,
-              extract=final_state)
+              extract=KEEP[keep(cell)])
 
     def solve(X, tf=float(cfg["tf"])):
         (C, m), ok = run_ensemble(system, Co, X, tf=tf, **kw)
@@ -92,7 +113,11 @@ def run_cell(cell, *, seed, seconds, trace, control, device, t_start):
     if counter is not None:
         counter.install()
     try:
-        win = window.run_window(solve, requests, seconds, sync)
+        # the traced run records the program's spans and counters; the
+        # untraced one runs the program as its users do
+        with (progress.record() if trace
+              else contextlib.nullcontext()) as rec:
+            win = window.run_window(solve, requests, seconds, sync)
     finally:
         if counter is not None:
             counter.remove()
@@ -115,6 +140,8 @@ def run_cell(cell, *, seed, seconds, trace, control, device, t_start):
                    window_s=win.seconds, config=cfg,
                    device_kind=dev_info["kind"],
                    profile=window.reduce_profile(counter))
+        ctx["recorded"] = recording.per_iteration(
+            rec.read(), recording.slowed(ctx, PROFILE_FROM))
         for m in cell.per_layer:
             v = spec.load_module("metrics", m["name"]).read(ctx)
             if v is not None:
@@ -157,9 +184,14 @@ def verify(cell, win, seed, Co_list):
     rows = np.stack(rows)[ok]
     cfg = cell.config
     t0 = time.perf_counter()
+    t_save = None
+    if keep(cell) == "trajectory":
+        t_save = np.linspace(0.0, float(cfg["tf"]),
+                             int(cell.traffic["Nts"]) + 1)
     if len(rows):
         C_ref, m_ref = check.reference(cfg["reference"], rows, Co_list, cfg,
-                                       lim["reference_tolerance"])
+                                       lim["reference_tolerance"],
+                                       t_save=t_save)
         errs = check.member_errors(np.stack(C)[ok], np.stack(m)[ok], C_ref,
                                    m_ref, float(cfg["rtol"]),
                                    float(cfg["atol"]))

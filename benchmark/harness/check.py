@@ -5,15 +5,18 @@ from the seed, is solved again by the configuration's plain reference
 (``reference/<name>.py``: NumPy and SciPy, nothing of the program) from
 the same parameter rows the program was given, in worker processes on
 the host's CPU.  Each sampled member that the program marked valid is
-compared over its whole final state: every bulk species on every node
-and every membrane species.  A member's error is the largest
+compared over all that its request kept: by default its final state,
+every bulk species on every node and every membrane species; under a
+traffic's ``"keep": "trajectory"`` that state at every save time after
+t = 0.  A member's error is the largest
 
     |program - reference| / (atol + rtol * scale)
 
 with the configuration's rtol and atol, and as scale the largest
 magnitude of that bulk species over the profile (for a membrane
-species, of the membrane state): the error in units of the solver's
-own tolerance, against each species' own size.  The numbers are the
+species, of the membrane state), and over every save time kept, t = 0
+included: the error in units of the solver's own tolerance, against
+each species' own size.  The numbers are the
 largest, the 90th percentile and the median of the sampled members'
 errors; a cell's limits file names those it compares.
 
@@ -43,21 +46,22 @@ def pick(sizes, n: int, seed: int):
 
 
 def _solve(job):
-    name, rows, Co, geom, tol = job
+    name, rows, Co, geom, tol, t_save = job
     ref = spec.load_module("reference", name)
     C, m, _ = ref.solve_member(rows, Co, R=geom["R"], dr=geom["dr"],
                                tf=geom["tf"], rtol=tol["rtol"],
-                               atol=tol["atol"])
+                               atol=tol["atol"], t_save=t_save)
     return C, m
 
 
-def reference(name: str, rows, Co, config: dict, tol: dict):
+def reference(name: str, rows, Co, config: dict, tol: dict, t_save=None):
     """The reference's final states (K, 10, Nr+1) and (K, 8) of the
-    parameter rows (K, 24), one worker process per CPU core, none of
-    which touches the card."""
+    parameter rows (K, 24), or with ``t_save`` its states at those times,
+    (K, T, 10, Nr+1) and (K, T, 8); one worker process per CPU core, none
+    of which touches the card."""
     geom = dict(R=float(config["R"]), dr=float(config["dr"]),
                 tf=float(config["tf"]))
-    jobs = [(name, r, list(Co), geom, tol) for r in rows]
+    jobs = [(name, r, list(Co), geom, tol, t_save) for r in rows]
     saved = {k: os.environ.get(k) for k in ("CUDA_VISIBLE_DEVICES",
                                             "OMP_NUM_THREADS")}
     os.environ.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
@@ -79,12 +83,20 @@ def reference(name: str, rows, Co, config: dict, tol: dict):
 
 def member_errors(C, m, C_ref, m_ref, rtol: float, atol: float):
     """Each member's largest error in units of the tolerance, against
-    each species' own scale (see the module docstring)."""
-    sC = np.abs(C_ref).max(axis=2, keepdims=True)
-    sm = np.abs(m_ref).max(axis=1, keepdims=True)
-    eC = np.abs(C - C_ref) / (atol + rtol * sC)
-    em = np.abs(m - m_ref) / (atol + rtol * sm)
-    e = np.maximum(eC.reshape(len(C), -1).max(axis=1), em.max(axis=1))
+    each species' own scale (see the module docstring).  Final states
+    are (K, 10, Nr+1) and (K, 8); trajectories (K, T, 10, Nr+1) and
+    (K, T, 8), whose first save, t = 0, sets no error."""
+    first = 1
+    if m.ndim == 2:
+        # one save, the final one, compared
+        C, m, C_ref, m_ref = (a[:, None] for a in (C, m, C_ref, m_ref))
+        first = 0
+    sC = np.abs(C_ref).max(axis=(1, 3), keepdims=True)
+    sm = np.abs(m_ref).max(axis=(1, 2), keepdims=True)
+    eC = np.abs(C - C_ref)[:, first:] / (atol + rtol * sC)
+    em = np.abs(m - m_ref)[:, first:] / (atol + rtol * sm)
+    e = np.maximum(eC.reshape(len(C), -1).max(axis=1),
+                   em.reshape(len(m), -1).max(axis=1))
     # a non-finite output is as wrong as it gets
     return np.where(np.isfinite(e), e, np.inf)
 

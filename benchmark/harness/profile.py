@@ -7,6 +7,12 @@ readers and the result line need: the sub-window's length, the seconds
 in which some operation ran on the device (the union of the device
 intervals), the kernel launches, the device operations that took most
 time and the idle gaps by what the host was doing.
+
+A ``record_function`` range, as each span of the program's recorder is
+when the traced run switches it on, stands in the trace on the host and
+on the card's timeline; it marks time and runs nothing, so it is left
+out of all of these: the numbers read the same with the recorder on as
+with it off.
 """
 
 from __future__ import annotations
@@ -29,11 +35,14 @@ def make_profiler():
 
 
 def _events(prof):
-    """(kind, name, start ns, end ns) of every event; kind is "kernel",
-    "device" (a copy or a fill on the card) or "host"."""
+    """(kind, name, start ns, end ns) of every event but the
+    ``record_function`` ranges; kind is "kernel", "device" (a copy or a
+    fill on the card) or "host"."""
     from torch.autograd import DeviceType
     out = []
     for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            continue
         start = e.start_ns()
         end = start + (e.duration_ns() if hasattr(e, "duration_ns")
                        else int(e.duration_us() * 1000))
@@ -59,16 +68,29 @@ def _union(intervals):
     return merged
 
 
+def _parents(starts, ends):
+    """Each host operation's parent, the innermost one open when it
+    started (-1 for none), over operations sorted by start, the longer
+    first among those that start together."""
+    parent, open_ = [], []
+    for s, e in zip(starts, ends):
+        while open_ and ends[open_[-1]] < s:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(len(parent) - 1)
+    return parent
+
+
 def _host_doing(host, mid):
     """The innermost host operation running at ``mid`` (the latest to
     start among those that cover it), or None."""
-    starts = host[0]
+    starts, ends, names, parent = host
     i = bisect.bisect_right(starts, mid) - 1
-    # nested operations start after their parents: walk back a little
-    for j in range(i, max(i - 64, -1), -1):
-        if host[1][j] >= mid:
-            return host[2][j]
-    return None
+    # an operation that covers ``mid`` holds the latest to start before
+    # it: walk up from that one
+    while i >= 0 and ends[i] < mid:
+        i = parent[i]
+    return names[i] if i >= 0 else None
 
 
 def reduce(prof) -> dict:
@@ -85,9 +107,11 @@ def reduce(prof) -> dict:
     by_op = defaultdict(int)
     for n, s, e in dev:
         by_op[n] += e - s
-    host_ev = sorted((s, e, n) for k, n, s, e in ev if k == "host")
-    host = ([h[0] for h in host_ev], [h[1] for h in host_ev],
-            [h[2] for h in host_ev])
+    host_ev = sorted((s, -e, n) for k, n, s, e in ev if k == "host")
+    starts = [h[0] for h in host_ev]
+    ends = [-h[1] for h in host_ev]
+    host = (starts, ends, [h[2] for h in host_ev],
+            _parents(starts, ends))
     gaps = defaultdict(int)
     edges = [lo] + [x for iv in busy for x in iv] + [hi]
     for s, e in zip(edges[0::2], edges[1::2]):

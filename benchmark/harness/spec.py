@@ -7,7 +7,10 @@ lives in a file of its own under ``benchmark/``, found by name alone:
 * ``configs/<config>.json``: the deployment (sizes, precision, solver
   settings, the reference that re-derives its results);
 * ``traffic/<traffic>.json``: the parameters of one traffic mix, read by
-  the one general generator in ``harness/traffic.py``;
+  the one general generator in ``harness/traffic.py``, with the save
+  times a request asks for (``Nts``) and what it keeps of each member
+  (``keep``: ``final``, the default, or ``trajectory``;
+  ``harness/cell_run.py``);
 * ``limits/<workload>.json``: how many members the check samples and the
   limit of each number compared;
 * ``metrics/<metric>.py``: the reader of one per-layer metric;

@@ -9,7 +9,9 @@ With ``--trace 1`` a wrapper around the program's step
 (``ops.batch_stiff._SolverCtx.step``) keeps a reference to every call's
 ``active`` lane mask; it launches nothing on the device, and the masks
 are summed once, after the window.  The same wrapper opens and closes
-the profiler around a steady run of loop iterations.
+the profiler around a steady run of loop iterations.  The program's own
+recorder, on for the whole traced window (``harness/cell_run.py``),
+counts the same iterations from the same start.
 """
 
 from __future__ import annotations

@@ -11,14 +11,16 @@ beside the step wrapper's (``--trace 1``).
 
 (``--cpu`` as a further argument runs on the host, for a rehearsal.)
 
-``run.py`` never switches the recorder on: its runs measure the program
-as users run it, and a ``--trace 0`` run here beside one of ``run.py``
-on the same seed gives what the recorder costs.  With ``--trace 1`` the
-times per iteration leave out the profiled sub-window and the profiler's
-stop, as ``iteration_ms`` does.  ``--chrome`` replaces the window by one
-request under ``progress.trace()`` (its Chrome trace goes to a temporary
-directory, removed after) and prints, for each span, the kernel launches
-and the device time of the kernels launched directly inside it.
+``run.py`` switches the recorder on only with ``--trace 1``: its
+``--trace 0`` runs measure the program as users run it, and a
+``--trace 0`` run here beside one of ``run.py`` on the same seed gives
+what the recorder costs.  With ``--trace 1`` this reads the recorder
+that ``run.py`` switched on, and the times per iteration leave out the
+profiled sub-window and the profiler's stop, as ``iteration_ms`` does.
+``--chrome`` replaces the window by one request under
+``progress.trace()`` (its Chrome trace goes to a temporary directory,
+removed after) and prints, for each span, the kernel launches and the
+device time of the kernels launched directly inside it.
 """
 
 from __future__ import annotations
@@ -39,42 +41,7 @@ from collections import defaultdict  # noqa: E402
 BENCH = pathlib.Path(__file__).resolve().parent
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
-SPANS = ("request", "group", "iteration", "harvest", "sync", "step",
-         "dense_output", "rhs", "bands", "factor", "solve")
-
-
-def per_iteration(rec, profiled=None) -> dict:
-    """The recorder's numbers over the loop iterations outside
-    ``profiled`` (a half-open range of iteration indices, or None)."""
-    c = rec.counters
-
-    def skip(i):
-        return profiled is not None and i is not None and i in profiled
-
-    n = sum(1 for s in rec.spans
-            if s.name == "iteration" and not skip(s.iteration))
-    if not n:
-        return {}
-
-    def ms(name, less=("sync",)):
-        return rec.self_ns(name, less, skip) / n / 1e6
-
-    out = dict(
-        iterations_timed=n,
-        iteration_span_ms=ms("iteration", ()),
-        host_syncs_per_iteration=c["host_syncs"] / c["iterations"],
-        sync_wait_ms=ms("sync"),
-        step_host_ms=ms("step"),
-        accepted_step_pct=100.0 * c["accepted_steps"]
-        / c["active_lane_steps"],
-        rhs_host_ms=ms("rhs"),
-        bands_host_ms=ms("bands"),
-        linalg_host_ms=ms("factor") + ms("solve"))
-    # each span less all its recorded children: the parts add up to the
-    # iteration span
-    out["exclusive_ms"] = {name: ms(name, SPANS) for name in SPANS[2:]}
-    out["counters"] = dict(c)
-    return out
+from harness.recording import SPANS, per_iteration, slowed  # noqa: E402
 
 
 def launches_by_span(profile) -> dict:
@@ -141,6 +108,10 @@ def main(argv=None):
         return seen["wrapper"]
 
     def recorded_window(solve, requests, seconds, sync):
+        if progress.RECORDER is not None:
+            # a --trace 1 run records its window already
+            seen["recorder"] = progress.RECORDER
+            return orig_window(solve, requests, seconds, sync)
         with progress.record() as rec:
             seen["recorder"] = rec
             return orig_window(solve, requests, seconds, sync)
@@ -169,12 +140,7 @@ def main(argv=None):
     result = run.main(args, device="cpu" if "--cpu" in flags else None,
                       t_start=T_START)
     rec = seen["recorder"].read()
-    profiled = None
-    if "prof_iterations" in seen.get("wrapper", {}):
-        # the profiled iterations, and the one after, whose step first
-        # stops the profiler (``iteration_ms`` leaves that time out too)
-        lo = cell_run.PROFILE_FROM
-        profiled = range(lo, lo + seen["wrapper"]["prof_iterations"] + 1)
+    profiled = slowed(seen.get("wrapper", {}), cell_run.PROFILE_FROM)
     line = dict(recorder=per_iteration(rec, profiled),
                 wrapper=seen.get("wrapper"))
     if "iteration_ms" in result["metrics"]:

@@ -225,14 +225,23 @@ def _pattern(M):
     return rows, cols, color, seed, indptr
 
 
-def solve_member(packed, Co, *, R, dr, tf, rtol=1e-8, atol=1e-9):
+def solve_member(packed, Co, *, R, dr, tf, rtol=1e-8, atol=1e-9,
+                 t_save=None):
     """The final bulk profile (10, Nr+1) and membrane state (8,) of one
-    member, and the Radau steps it took.  Raises when the integration
+    member, and the Radau steps it took.  With ``t_save`` (increasing
+    times in [0, tf]) the profiles (T, 10, Nr+1) and membrane states
+    (T, 8) at those times instead, from Radau's own continuous
+    extension over the same steps.  Raises when the integration
     fails."""
     mb = Member(packed, Co, R, dr)
     res = solve_ivp(mb.rhs, (0.0, float(tf)), mb.y0(), method="Radau",
-                    rtol=rtol, atol=atol, jac=mb.jac)
+                    rtol=rtol, atol=atol, jac=mb.jac,
+                    dense_output=t_save is not None)
     if res.status != 0:
         raise RuntimeError(f"reference solve failed: {res.message}")
+    if t_save is not None:
+        U = res.sol(np.asarray(t_save, dtype=np.float64))
+        return (mb.profile(U).transpose(2, 0, 1),
+                mb.split(U)[1].T.copy(), len(res.t) - 1)
     u = res.y[:, -1]
     return mb.profile(u), mb.split(u)[1].copy(), len(res.t) - 1

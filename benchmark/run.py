@@ -14,11 +14,13 @@ port uses.
 Set-up (timed as ``setup_s``): imports, the CUDA context, the system and
 the traffic, one short ``run_ensemble`` at the cell's lanes and dtypes,
 and with ``--trace 1`` one short profile.  Then requests run back to
-back until the first one that completes after ``--seconds``.  After the
-window: the device's peak memory, the check against the plain reference
-(``harness/check.py``), and the result as the last line of standard
-output; each number compared, beside its limit, also ends standard
-error.
+back until the first one that completes after ``--seconds``; with
+``--trace 1`` under the program's recorder of spans and counters
+(``harness/recording.py``), which ``--trace 0`` never switches on.
+After the window: the device's peak memory, the check against the plain
+reference (``harness/check.py``), and the result as the last line of
+standard output; each number compared, beside its limit, also ends
+standard error.
 
 ``--control`` runs the program with the configuration's control switched
 on (the next precision down, from ``limits/<cell>.json``), to read the

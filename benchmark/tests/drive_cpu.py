@@ -11,7 +11,10 @@ imported from the repository this file lives in.  Faults:
 * ``half_batch``: only the first half of each request's members is
   solved; the rest get the mean of the solved half's outputs;
 * ``altered_answer``: every saved profile is off by one part in a
-  thousand where the step writes it.
+  thousand where the step writes it;
+* ``shifted_save``: the middle save of every member holds the save
+  after it, where the program hands a member's saves to the request's
+  ``extract`` (a final state is untouched).
 """
 
 from __future__ import annotations
@@ -64,8 +67,26 @@ def altered_answer():
     batch_stiff._SolverCtx.snapshot = snapshot
 
 
+def shifted_save():
+    import torch
+    from gab1_shp2_tpu_torch.ensemble import engine
+
+    orig = engine.run_ensemble
+
+    def run_ensemble(system, Co, ensemble, *, extract, **kw):
+        def shifted(sol):
+            k = sol.C.shape[0] // 2
+            idx = torch.arange(sol.C.shape[0])
+            idx[k] = k + 1
+            return extract(sol._replace(C=sol.C[idx], m=sol.m[idx]))
+
+        return orig(system, Co, ensemble, extract=shifted, **kw)
+
+    engine.run_ensemble = run_ensemble
+
+
 FAULTS = dict(frozen_step=frozen_step, half_batch=half_batch,
-              altered_answer=altered_answer)
+              altered_answer=altered_answer, shifted_save=shifted_save)
 
 if __name__ == "__main__":
     t0 = time.perf_counter()

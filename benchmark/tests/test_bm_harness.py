@@ -1,8 +1,11 @@
 """The harness end to end on the CPU, at a tiny size, in a throwaway copy
 of the benchmark: it finds an added configuration, traffic mix, limits
 file and metric reader by name alone; a sound run comes out correct; a
-run with the timed path broken underneath comes out not correct; without
-a card, or without the program beside it, a run prints no result."""
+run with the timed path broken underneath comes out not correct; a cell
+that keeps each member's whole trajectory is checked at every save, so a
+save shifted in time fails it where a final-state cell cannot see it;
+without a card, or without the program beside it, a run prints no
+result."""
 
 from __future__ import annotations
 
@@ -19,10 +22,18 @@ HERE = pathlib.Path(__file__).resolve().parent
 BENCH = HERE.parent
 REPO = BENCH.parent
 # tiny cells: each configuration at dr = 1 and 0.5 min on 8 lanes, with
-# 16-member posterior requests and the limits of the real cell named
+# 16-member posterior requests and the limits of the real cell named; the
+# traj16 requests keep each member's 5 saves
 CELLS = {"tiny_f32.tiny16": ("base_f32", "base_f32.posterior1024"),
-         "tiny_f64mix.tiny16": ("base_f64mix", "base_f64mix.efast65")}
+         "tiny_f64mix.tiny16": ("base_f64mix", "base_f64mix.efast65"),
+         "tiny_f32.traj16": ("base_f32", "base_f32.posterior1024")}
 CELL = "tiny_f32.tiny16"
+TRAJ = "tiny_f32.traj16"
+# the check's numbers of CELL on seed 7 as the harness gave them before it
+# could keep trajectories (torch on the CPU, one thread)
+FINAL_NUMBERS_SEED_7 = dict(err_max=0.10724931834302816,
+                            err_p90=0.10003672919935164,
+                            err_median=0.06352407492947151)
 PROBE = '''"""A throwaway reader: the loop iterations of the window."""
 
 
@@ -49,20 +60,23 @@ def checkout(tmp_path_factory):
     traffic = json.loads((b / "traffic" / "posterior1024.json").read_text())
     traffic["members"] = 16
     _dump(b / "traffic" / "tiny16.json", traffic)
+    _dump(b / "traffic" / "traj16.json", dict(traffic, keep="trajectory",
+                                              Nts=4))
     for cell, (config, real) in CELLS.items():
-        name = cell.split(".")[0]
+        name, mix = cell.split(".")
         cfg = json.loads((b / "configs" / f"{config}.json").read_text())
         cfg.update(dr=1.0, tf=0.5, lanes=8, max_steps=200)
         _dump(b / "configs" / f"{name}.json", cfg)
         limits = json.loads((b / "limits" / f"{real}.json").read_text())
         limits["sample"] = 6
         _dump(b / "limits" / f"{cell}.json", limits)
-        spec["configs"].append(dict(
-            name=name, source="a test", file=f"benchmark/configs/{name}.json",
-            reduced=["dr", "tf", "lanes", "max_steps"], why="a test"))
-        spec["workloads"].append(dict(name=cell, config=name,
-                                      traffic="tiny16", chips=1,
-                                      why="a test"))
+        if name not in {c["name"] for c in spec["configs"]}:
+            spec["configs"].append(dict(
+                name=name, source="a test",
+                file=f"benchmark/configs/{name}.json",
+                reduced=["dr", "tf", "lanes", "max_steps"], why="a test"))
+        spec["workloads"].append(dict(name=cell, config=name, traffic=mix,
+                                      chips=1, why="a test"))
     (b / "metrics" / "tiny_probe.py").write_text(PROBE)
     for m in spec["per_layer"]:
         m["workloads"] += list(CELLS)
@@ -130,6 +144,25 @@ def test_broken_timed_path_is_not_correct(checkout, fault, cell):
     rc, res, err = drive(checkout, fault=fault, cell=cell)
     assert rc == 0, err[-3000:]
     assert res["correct"] is False, res["checks"]
+
+
+def test_final_state_numbers_unchanged(checkout):
+    """A traffic that names no ``keep`` is checked over the final state
+    alone, to the last bit as before trajectories could be kept."""
+    rc, res, err = drive(checkout, seed=7)
+    assert rc == 0, err[-3000:]
+    assert {k: v["value"] for k, v in res["checks"].items()} == \
+        FINAL_NUMBERS_SEED_7
+
+
+@pytest.mark.parametrize("cell, correct", [(TRAJ, False), (CELL, True)])
+def test_shifted_save(checkout, cell, correct):
+    """The middle save of every member replaced by the next: a
+    trajectory cell fails, a final-state cell, which never sees that
+    save, does not."""
+    rc, res, err = drive(checkout, fault="shifted_save", cell=cell)
+    assert rc == 0, err[-3000:]
+    assert res["correct"] is correct, res["checks"]
 
 
 def test_control_is_not_correct(checkout):

@@ -18,7 +18,8 @@ import json, pathlib, sys
 bench = pathlib.Path(sys.argv[1])
 sys.path[:0] = [str(bench), str(bench.parent)]
 import run
-import harness.cell_run, harness.check, harness.profile, harness.spec
+import harness.cell_run, harness.check, harness.profile, harness.recording
+import harness.spec
 import harness.traffic, harness.window
 import gab1_shp2_tpu_torch
 import gab1_shp2_tpu_torch.ensemble.engine, gab1_shp2_tpu_torch.ops.batch_stiff

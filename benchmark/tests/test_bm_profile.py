@@ -1,7 +1,9 @@
 """The reduction of a device trace, on a hand-made trace: busy time is
 the union of the device intervals, launches count kernels only, and each
 idle gap is charged to the innermost host operation running at its
-middle."""
+middle, however many operations started inside that one; the
+``record_function`` ranges of the program's recorder, on the host and on
+the card's timeline, change none of the numbers."""
 
 from __future__ import annotations
 
@@ -15,8 +17,12 @@ MS = 1_000_000   # ns
 
 
 class Ev:
-    def __init__(self, name, dev, start, dur):
+    def __init__(self, name, dev, start, dur, annotation=False):
         self._n, self._d, self._s, self._t = name, dev, start, dur
+        self._a = annotation
+
+    def is_user_annotation(self):
+        return self._a
 
     def name(self):
         return self._n
@@ -37,9 +43,11 @@ def trace(events):
         profiler=types.SimpleNamespace(kineto_results=res))
 
 
-def test_reduce():
-    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
-    ev = [
+cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+
+
+def _plain():
+    return [
         Ev("aten::einsum", cpu, 0, 4 * MS),
         Ev("cudaLaunchKernel", cpu, 1 * MS, 1 * MS),
         Ev("gemm", gpu, 2 * MS, 2 * MS),
@@ -48,7 +56,22 @@ def test_reduce():
         Ev("Memcpy DtoH (Device -> Pageable)", gpu, 8 * MS, 1 * MS),
         Ev("gemm", gpu, 9 * MS, 1 * MS),
     ]
-    r = profile.reduce(trace(ev))
+
+
+def _spans():
+    """The recorder's ranges around the same work: an iteration over the
+    whole of it, a step and its rhs, each on the host and, as the
+    profiler shows a range, on the card's timeline too."""
+    out = []
+    for name, start, dur in (("iteration", 0, 10 * MS),
+                             ("step", 0, 9 * MS), ("rhs", 1 * MS, 3 * MS)):
+        out += [Ev(name, cpu, start, dur, annotation=True),
+                Ev(name, gpu, start, dur, annotation=True)]
+    return out
+
+
+def test_reduce():
+    r = profile.reduce(trace(_plain()))
     assert r["window_s"] == 10e-3
     assert r["busy_s"] == 5e-3                  # [2,5] + [8,10]
     assert r["kernels"] == 3                    # the copy is no launch
@@ -58,6 +81,25 @@ def test_reduce():
     assert gaps["cudaLaunchKernel"] == 2e-3
     # [5,8]: middle 6.5 ms, inside aten::item
     assert gaps["aten::item"] == 3e-3
+
+
+def test_recorder_ranges_change_nothing():
+    plain = profile.reduce(trace(_plain()))
+    spanned = profile.reduce(trace(_spans() + _plain()))
+    assert spanned == plain
+    assert spanned["kernels"] == 3
+    assert all(not name.startswith(("iteration", "step", "rhs"))
+               for name, _ in spanned["device_ops"] + spanned["idle_gaps"])
+
+
+def test_gap_inside_a_long_host_operation():
+    """An idle gap at the end of a host read that ran a thousand short
+    host operations first is the read's."""
+    ev = [Ev("aten::item", cpu, 0, 2000 * MS),
+          Ev("gemm", gpu, 0, 1000 * MS)]
+    ev += [Ev("aten::add", cpu, i * MS, MS // 2) for i in range(1000)]
+    gaps = dict(profile.reduce(trace(ev))["idle_gaps"])
+    assert gaps == {"aten::item": 1.0}
 
 
 def test_no_device_events():

@@ -1,7 +1,9 @@
-"""``recorded.py``: a cell's run with the program's recorder on for the
-window.  Its numbers per loop iteration from a synthetic recording, and
-one traced run of the tiny cell on the CPU, whose recorder line holds
-every number and whose program counters equal the step wrapper's."""
+"""The program's recorder in the benchmark: its numbers per loop
+iteration from a synthetic recording (``harness/recording.py``), the
+per-layer readers that hand them on, and one traced run of the tiny cell
+on the CPU through ``recorded.py``, whose recorder line holds every
+number, whose program counters equal the step wrapper's, and whose
+result line carries the readers' metrics at the same values."""
 
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import sys
 import pytest
 from test_bm_harness import CELL, REPO, checkout  # noqa: F401
 
-import recorded
 from gab1_shp2_tpu_torch.utils import progress
+from harness import spec
+from harness.recording import per_iteration
 
 NUMBERS = ("host_syncs_per_iteration", "sync_wait_ms", "step_host_ms",
            "accepted_step_pct", "rhs_host_ms", "bands_host_ms",
@@ -52,7 +55,7 @@ def _synthetic():
 
 
 def test_numbers_per_iteration():
-    out = recorded.per_iteration(_synthetic(), profiled=range(1, 2))
+    out = per_iteration(_synthetic(), profiled=range(1, 2))
     assert out["iterations_timed"] == 1
     assert out["host_syncs_per_iteration"] == 1.5       # the whole window
     assert out["accepted_step_pct"] == 75.0
@@ -66,9 +69,18 @@ def test_numbers_per_iteration():
     ex = out["exclusive_ms"]
     assert sum(ex.values()) == ms(out["iteration_span_ms"])
     assert ex["step"] == ms(150e-6) and ex["harvest"] == ms(130e-6)
-    whole = recorded.per_iteration(_synthetic())
+    whole = per_iteration(_synthetic())
     assert whole["iterations_timed"] == 2
     assert whole["step_host_ms"] == ms(600e-6)
+
+
+def test_readers_hand_on_the_numbers():
+    out = per_iteration(_synthetic(), profiled=range(1, 2))
+    ctx = dict(recorded=out)
+    for name in NUMBERS:
+        reader = spec.load_module("metrics", name)
+        assert reader.read(ctx) == out[name], name
+        assert reader.read(dict(recorded={})) is None, name
 
 def test_traced_run_prints_the_recorder_line(checkout):  # noqa: F811
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=str(REPO))
@@ -88,3 +100,7 @@ def test_traced_run_prints_the_recorder_line(checkout):  # noqa: F811
     assert (c["iterations"], c["lane_slots"], c["active_lane_steps"]) == (
         wrapper["iterations"], wrapper["lane_slots"], wrapper["active"])
     assert c["members"] == result["attempted"]
+    # the run's readers read the recorder that recorded.py read
+    for name in NUMBERS:
+        assert result["metrics"][name]["value"] == pytest.approx(
+            rec[name], rel=1e-12), name

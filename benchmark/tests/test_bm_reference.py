@@ -65,6 +65,39 @@ def test_jacobian_and_pattern():
                                  axis=1), rtol=1e-13, atol=1e-13 * scale)
 
 
+@pytest.mark.parametrize("seed", [None, 2])
+def test_trajectory_at_the_save_points(seed):
+    """With save times the reference gives the state at each: the first
+    is the initial state, the last the final state of the plain call, and
+    at rtol 1e-7 every save after t = 0 lies within 0.01 tolerance units
+    (rtol 1e-4, atol 1e-7, each scale as the check takes it) of a
+    run at rtol 1e-9 that stops at every save."""
+    from scipy.integrate import solve_ivp
+
+    p, tol = member(seed), dict(rtol=1e-7, atol=1e-9)
+    t_save = np.linspace(0.0, TINY["tf"], 6)
+    C, m, steps = ref.solve_member(p, CO, t_save=t_save, **tol, **TINY)
+    Cf, mf, steps_f = ref.solve_member(p, CO, **tol, **TINY)
+    assert C.shape == (6, 10, 11) and m.shape == (6, 8)
+    assert steps == steps_f
+    np.testing.assert_allclose(C[-1], Cf, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(m[-1], mf, rtol=1e-12, atol=1e-300)
+    mb = ref.Member(p, CO, TINY["R"], TINY["dr"])
+    np.testing.assert_allclose(C[0], mb.profile(mb.y0()), rtol=1e-12)
+    u, tight = mb.y0(), [mb.y0()]
+    for a, b in zip(t_save[:-1], t_save[1:]):
+        u = solve_ivp(mb.rhs, (a, b), u, method="Radau", rtol=1e-9,
+                      atol=1e-11, jac=mb.jac).y[:, -1]
+        tight.append(u)
+    U = np.stack(tight, axis=1)
+    Ct, mt = mb.profile(U).transpose(2, 0, 1), mb.split(U)[1].T
+    sC = np.abs(Ct).max(axis=(0, 2), keepdims=True)
+    sm = np.abs(mt).max()
+    err = max((np.abs(C - Ct) / (1e-7 + 1e-4 * sC))[1:].max(),
+              (np.abs(m - mt) / (1e-7 + 1e-4 * sm))[1:].max())
+    assert err < 0.01
+
+
 def test_matches_the_programs_tight_solve():
     import torch
 
