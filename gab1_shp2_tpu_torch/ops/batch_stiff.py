@@ -532,13 +532,17 @@ class _SolverCtx:
         interpolation from ``st`` (at ``st.t``, step ``h``) to ``y_1``:
         per-lane save slots by masked one-hot writes.  ``f_1`` is
         f(y_1), or None to evaluate it only if some save is due.
-        Returns ``(nts, out_C, out_m)``."""
+        Returns ``(nts, out_C, out_m)``.  With the recorder on, each
+        pass of the write loop counts ``save_passes``."""
         Nts, dt_save, eps, dtype = self.Nts, self.dt_save, self.eps, self.dtype
         t, y = st.t, st.y
 
         def writes(nts_i):
+            # the save time in the state's dtype, as the loop below
+            # computes it: a float32 t_new that stops at float32(tf)
+            # still reaches the last save
             return (accept & (nts_i <= Nts)
-                    & (nts_i.double() * dt_save <= t_new + eps))
+                    & (nts_i.to(dtype) * dt_save <= t_new + eps))
 
         nts, out_C, out_m = st.nts, st.out_C, st.out_m
         write = writes(nts)
@@ -559,6 +563,8 @@ class _SolverCtx:
                 & write[None, :]
             out_C = torch.where(wmask[:, None, None, :], Cs[None], out_C)
             out_m = torch.where(wmask[:, None, :], ms[None], out_m)
+            if self.rec is not None:
+                self.rec.count(save_passes=1)
             nts = nts + write.to(torch.int32)
             write = writes(nts)
             if not host_read(write.any()):

@@ -289,8 +289,13 @@ def _solve_stiff_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
             # dense-output snapshots for save points inside (t, t_new]
             if accept:
                 def crosses(i):
+                    # the save time in the state's dtype, as ``ts``
+                    # below: a float32 t_new that stops at float32(tf)
+                    # still reaches the last save
                     return (i <= Nts
-                            and i * dt_save <= float(t_new) + eps)
+                            and float(torch.as_tensor(i * dt_save,
+                                                      dtype=dtype))
+                            <= float(t_new) + eps)
 
                 if crosses(nts):
                     f_end = f(y_1) if f_1 is None else f_1

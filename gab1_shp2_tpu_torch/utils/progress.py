@@ -24,6 +24,7 @@ import tempfile
 import threading
 import time
 from collections import defaultdict
+from time import perf_counter_ns, time_ns
 from typing import (Callable, Dict, Iterable, Iterator, List, NamedTuple,
                     Optional, TypeVar)
 
@@ -152,6 +153,26 @@ class Recording(NamedTuple):
                    if s.name == name and not skip(s.iteration))
 
 
+# Unix-time readings the recorder's clock offset is chosen from
+CLOCK_READINGS = 32
+
+
+def clock_offset_ns() -> int:
+    """Unix time less the steady clock, in nanoseconds: of
+    ``CLOCK_READINGS`` Unix-time readings, each bracketed by two
+    steady-clock readings, the one with the tightest bracket, against its
+    bracket's midpoint.  A reading that the host preempted has a wide
+    bracket and is passed over."""
+    best = None
+    for _ in range(CLOCK_READINGS):
+        before = perf_counter_ns()
+        wall = time_ns()
+        after = perf_counter_ns()
+        if best is None or after - before < best[0]:
+            best = (after - before, wall - (before + after) // 2)
+    return best[1]
+
+
 class Recorder:
     """Spans and counters of the solves run while it is switched on
     (:func:`record`).  Each thread keeps its own lists (the mesh's worker
@@ -167,7 +188,7 @@ class Recorder:
         self._ids = itertools.count()
         self._iterations = itertools.count()
         # the profiler's clock from the steady one, fixed once
-        self._offset_ns = time.time_ns() - time.perf_counter_ns()
+        self._offset_ns = clock_offset_ns()
         # a process's first record_function returns a millisecond after
         # it reads the clock: pay that here, not in the first span
         with torch.profiler.record_function("recorder"):

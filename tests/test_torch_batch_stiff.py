@@ -177,3 +177,26 @@ def test_failure_masking():
     ok = ~st.failed.numpy()
     assert ok[0] and ok[2] and ok[3] and not ok[1]
     assert torch.isfinite(sol.C[[0, 2, 3]]).all()
+
+
+def test_f32_keeps_the_last_save_at_a_tf_float32_cannot_hold():
+    """tf = 0.02 is not a float32 number: t stops at float32(0.02), below
+    the float64 save time.  Compared in the state's dtype, as the JAX
+    package compares them, every member keeps its last save, with the
+    JAX package's step counts."""
+    kw = dict(dr=1.0, tf=0.02, Nts=2, rtol=1e-4, atol=1e-7, method="rodas4",
+              return_stats=True)
+    P = np.repeat(_ensemble(np.float32, spread=0.0)[:1], 2, axis=0)
+    co = _co(False, np.float32)
+    sj, stj = j_solve(jg.base_system(), jnp.asarray(co),
+                      JParams.unpack(jnp.asarray(P)), **kw)
+    st, stt = tg.solve_stiff_batch(tg.base_system(), torch.as_tensor(co),
+                                   TParams.unpack(torch.as_tensor(P)),
+                                   device="cpu", **kw)
+    assert not np.asarray(stj.failed).any()
+    assert not stt.failed.any()
+    np.testing.assert_array_equal(stt.n_accepted.numpy(),
+                                  np.asarray(stj.n_accepted))
+    np.testing.assert_array_equal(stt.n_rejected.numpy(),
+                                  np.asarray(stj.n_rejected))
+    assert torch.isfinite(st.C).all() and torch.isfinite(st.m).all()

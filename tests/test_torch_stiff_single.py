@@ -280,6 +280,26 @@ def test_solve_stiff_failure_flags():
                                   np.isnan(np.asarray(sj.C)))
 
 
+def test_solve_stiff_f32_keeps_the_last_save_at_a_tf_float32_cannot_hold():
+    """tf = 0.02 is not a float32 number: t stops at float32(0.02), below
+    the float64 save time.  Compared in the state's dtype, as the JAX
+    package compares them, the last save is written, with the JAX
+    package's step counts."""
+    kw = dict(dr=1.0, tf=0.02, Nts=2, rtol=1e-4, atol=1e-7, method="rodas4",
+              return_stats=True)
+    sj, stj = j_solve(jg.base_system(), jg.default_co(dtype=jnp.float32),
+                      jg.default_params(dtype=jnp.float32), **kw)
+    st_, stt = t_solve(tg.base_system(),
+                       tg.default_co(dtype=torch.float32, device="cpu"),
+                       tg.default_params(dtype=torch.float32, device="cpu"),
+                       device="cpu", **kw)
+    assert not bool(stj.failed)
+    assert not bool(stt.failed)
+    assert int(stt.n_accepted) == int(stj.n_accepted)
+    assert int(stt.n_rejected) == int(stj.n_rejected)
+    assert torch.isfinite(st_.C).all() and torch.isfinite(st_.m).all()
+
+
 def _ensemble(B=3, seed=0, spread=0.25):
     rng = np.random.default_rng(seed)
     p0 = np.asarray(jg.default_params().pack())

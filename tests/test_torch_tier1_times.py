@@ -66,7 +66,9 @@ def test_sums_per_file_and_total_over_workers(tmp_path):
 def test_plugin_writes_worker_and_clock(tmp_path):
     """A run with the plugin: every case carries its worker and clock
     readings, and its time (setup, call and teardown) lies within them."""
-    for name, body in (("test_p.py", "def test_one():\n    pass\n"),
+    # each case sleeps, so that junit's three-decimal time reads above 0
+    for name, body in (("test_p.py", "import time\n\n\ndef test_one():\n"
+                                     "    time.sleep(0.01)\n"),
                        ("test_q.py", "import time\n\n\ndef test_two():\n"
                                      "    time.sleep(0.05)\n")):
         (tmp_path / name).write_text(body)

@@ -8,6 +8,7 @@ counters against."""
 
 from __future__ import annotations
 
+import itertools
 import json
 from collections import Counter
 
@@ -217,6 +218,19 @@ def test_trace_writes_the_spans_into_its_chrome_trace(tmp_path):
         names = {e.get("name") for e in json.load(fh)["traceEvents"]}
     assert set(SPANS) <= names
     assert {s.name for s in run.recorder.read().spans} == set(SPANS)
+
+
+def test_clock_offset_passes_over_a_preempted_reading(monkeypatch):
+    """The recorder's offset to the profiler's clock comes from the
+    tightest bracketed reading: a Unix-time reading whose steady-clock
+    bracket a preemption widened does not set it."""
+    # a preempted reading (bracket 5 ms), then a tight one (100 ns), over
+    # and over; only the recorder's own names of the clocks are patched
+    steady = itertools.cycle([0, 5_000_000, 6_000_000, 6_000_100])
+    wall = itertools.cycle([1_000_000_000, 1_006_000_050])
+    monkeypatch.setattr(progress, "perf_counter_ns", lambda: next(steady))
+    monkeypatch.setattr(progress, "time_ns", lambda: next(wall))
+    assert progress.clock_offset_ns() == 1_000_000_000
 
 
 def test_self_time_leaves_out_the_syncs():
