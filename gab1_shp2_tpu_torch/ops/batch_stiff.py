@@ -34,11 +34,19 @@ counters, the ``step`` and its ``dense_output``, and the kernel-layer
 pieces ``rhs``, ``bands``, ``factor`` and ``solve``.  Whether to record
 is decided when the solve's :class:`_SolverCtx` is made; a solve that
 is not recorded runs the plain methods and closures.
+
+On a card, the RODAS and unfused Rosenbrock23 steps replay their body
+(everything before the dense output's first host read) from a CUDA
+graph (:class:`_StepGraph`), captured once per lane count, grid, dtypes,
+method and tolerances and reused by later solves of that key; the
+kernels, their order and their arithmetic are the eager step's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import threading
+from collections import OrderedDict
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -286,6 +294,38 @@ class _LaneParams(NamedTuple):
     p: Params              # the parameters themselves, state dtype
 
 
+class _Advance(NamedTuple):
+    """What a step computes before its first host read (the dense
+    output's): :meth:`_SolverCtx.advance`'s outputs, a graph's outputs
+    where the step replays one."""
+
+    h: torch.Tensor        # (B,) the step tried, truncated to the leg end
+    accept: torch.Tensor   # (B,) bool
+    t_new: torch.Tensor
+    y_new: torch.Tensor
+    h_new: torch.Tensor    # the carried step size
+    failed: torch.Tensor
+    nacc: torch.Tensor
+    nrej: torch.Tensor
+    f_n: torch.Tensor      # f(y)
+    y_1: torch.Tensor      # the step's end, accepted or not
+    f_1: Optional[torch.Tensor]  # f(y_1), or None where not computed
+    ok: torch.Tensor       # (B,) bool, the step's success flags
+
+
+def step_graphed(device: torch.device, method: str, step_impl: str) -> bool:
+    """Whether :meth:`_SolverCtx.step` replays its body from a CUDA graph:
+    the ROW tableaus and the unfused Rosenbrock23 on a card, whose bodies
+    make no host read."""
+    if device.type != "cuda":
+        return False    # no graphs on the CPU, where the parity tests run
+    if method == "trbdf2":
+        return False    # its Newton loop reads the host every iteration
+    if step_impl == "fused":
+        return False    # B1: one launch a step already
+    return True
+
+
 class _SolverCtx:
     """Shared per-step machinery of the lane-minor stiff integrator.
 
@@ -307,6 +347,9 @@ class _SolverCtx:
             raise ValueError(f"unknown method {method!r}")
         self.system, self.dr, self.Nts = system, dr, Nts
         self.rhs_mixed = rhs_mixed
+        self.device = torch.device(device)
+        self.graphed = step_graphed(self.device, method, step_impl)
+        self._graph = None      # the _StepGraph this solve holds
         self.rtol, self.atol, self.tf_total = rtol, atol, tf_total
         self.dtype, self.method, self.step_impl = dtype, method, step_impl
         self.Nr = int(round(R / dr))
@@ -315,6 +358,7 @@ class _SolverCtx:
         self.r = r64.to(dtype=dtype, device=device)
         self.dt_save = tf_total / Nts
         self.eps = 1e-10 * tf_total
+        self.h_min = 1e-13 * tf_total     # a smaller step fails the lane
         self.ls_dtype = linsolve_dtype if linsolve_dtype else dtype
         self.rj = r64[1:-1].to(dtype=dtype, device=device)
         self.rj_ls = r64[1:-1].to(dtype=self.ls_dtype, device=device)
@@ -445,9 +489,115 @@ class _SolverCtx:
         ``t1`` is the leg end, a float or a (B,) tensor; ``jac``
         optionally supplies cached bands (the TRBDF2 ``jac_reuse`` path),
         otherwise they are rebuilt from ``y``.  Returns ``(updated state,
-        per-lane step-success flags)``."""
+        per-lane step-success flags)``.
+
+        Where :func:`step_graphed` holds, everything up to the dense
+        output (:meth:`advance`) is one replay of a CUDA graph: the
+        inputs are copied into the graph's static buffers, and the
+        returned state holds the graph's output buffers, which the
+        solve's next step overwrites.  A replay runs no Python, so the
+        ``rhs``, ``bands``, ``factor`` and ``solve`` spans are recorded
+        only while the graph is captured; the recorder counts
+        ``graph_replays`` and ``graph_captures``."""
+        # jac_reuse's cached bands are refreshed on the host's votes
+        if self.graphed and jac is None:
+            adv, start = self._replay(lp, t1, active, st)
+        else:
+            adv = self.advance(f, lp, t1, active, st.t, st.h, st.y, st.nacc,
+                               st.nrej, st.failed, self.h_min, jac=jac)
+            start = st
+        nts, out_C, out_m = self.dense_output(f, lp, start, adv.h, adv.accept,
+                                              adv.t_new, adv.f_n, adv.y_1,
+                                              adv.f_1)
+        return LaneState(adv.t_new, adv.h_new, adv.y_new, nts, out_C, out_m,
+                         adv.nacc, adv.nrej, adv.failed), adv.ok
+
+    def _replay(self, lp: _LaneParams, t1, active, st: LaneState):
+        """The step's :meth:`advance` as one replay of the graph this
+        solve holds (taken at its first step); returns its outputs and
+        ``st`` with the step's start (``t``, ``y``) read from the static
+        inputs, which still hold it."""
+        g = self._graph
+        if g is None:
+            g = self._graph = self._take_graph(t1, active, st, lp)
+        ins = g.inputs
+        for name, v in (("y", st.y), ("t", st.t), ("h", st.h),
+                        ("active", active), ("nacc", st.nacc),
+                        ("nrej", st.nrej), ("failed", st.failed),
+                        ("D", lp.p.D), ("k", lp.p.k)):
+            ins[name].copy_(v)
+        if isinstance(t1, torch.Tensor):
+            ins["t1"].copy_(t1)
+        else:
+            ins["t1"].fill_(t1)
+        adv = g.replay()
+        if self.rec is not None:
+            self.rec.count(graph_replays=1)
+        return adv, st._replace(t=ins["t"], y=ins["y"])
+
+    def graph_key(self, B: int) -> tuple:
+        """Everything a captured step body bakes in."""
+        return (self.device, B, self.Nr + 1, self.dtype, self.ls_dtype,
+                self.method, self.rhs_mixed, self.system, self.dr,
+                self.rtol, self.atol)
+
+    def _take_graph(self, t1, active, st: LaneState,
+                    lp: _LaneParams) -> "_StepGraph":
+        """An idle graph of this solve's key, or one captured on this
+        step's inputs; its failure threshold is set to this solve's."""
+        B = st.t.shape[0]
+        key = self.graph_key(B)
+        with _GRAPHS_LOCK:
+            idle = _IDLE_GRAPHS.get(key)
+            g = idle.pop() if idle else None
+        if g is None:
+            t1_b = (t1 if isinstance(t1, torch.Tensor)
+                    else torch.full_like(st.t, t1))
+            inputs = dict(y=st.y, t=st.t, h=st.h, active=active, t1=t1_b,
+                          nacc=st.nacc, nrej=st.nrej, failed=st.failed,
+                          D=lp.p.D, k=lp.p.k,
+                          h_min=torch.full((), self.h_min,
+                                           dtype=self.dtype,
+                                           device=self.device))
+            # one capture at a time: torch's pool of side streams may hand
+            # two threads the same one
+            with _CAPTURE_LOCK:
+                g = _StepGraph(self, key, inputs)
+            if self.rec is not None:
+                self.rec.count(graph_captures=1)
+        else:
+            if g.done is not None:
+                torch.cuda.current_stream(self.device).wait_event(g.done)
+            g.inputs["h_min"].fill_(self.h_min)
+        return g
+
+    def release_graph(self) -> None:
+        """Give the graph this solve holds back to the idle ones, for the
+        next solve of its key; call it once the solve's last read of a
+        step output is queued."""
+        g, self._graph = self._graph, None
+        if g is None:
+            return
+        if g.graph is not None:
+            g.done = torch.cuda.Event()
+            g.done.record(torch.cuda.current_stream(self.device))
+        with _GRAPHS_LOCK:
+            _IDLE_GRAPHS.setdefault(g.key, []).append(g)
+            _IDLE_GRAPHS.move_to_end(g.key)
+            while sum(map(len, _IDLE_GRAPHS.values())) > MAX_IDLE_GRAPHS:
+                oldest = next(iter(_IDLE_GRAPHS))
+                gone = _IDLE_GRAPHS[oldest].pop(0)
+                if not _IDLE_GRAPHS[oldest]:
+                    del _IDLE_GRAPHS[oldest]
+                if gone.done is not None:
+                    gone.done.synchronize()
+
+    def advance(self, f, lp: _LaneParams, t1, active, t, h_carry, y, nacc,
+                nrej, failed, h_min, jac=None) -> "_Advance":
+        """The step up to its first host read: the stages, the error
+        norm and the controller, with ``h_min`` the failure threshold
+        (``self.h_min``, as a float or as a graph's device scalar)."""
         method, ls = self.method, self.ls_dtype
-        t, h_carry, y = st.t, st.h, st.y
         # step size: truncated to the leg end for active lanes, a
         # harmless dummy for finished lanes (their carried h is kept)
         h = torch.where(active, torch.minimum(h_carry, t1 - t),
@@ -518,13 +668,11 @@ class _SolverCtx:
         h_prop = h * torch.where(accept, fac_ok, fac_rej)
         h_prop = torch.where(torch.isfinite(h_prop), h_prop, h * 0.3)
         h_new = torch.where(active, h_prop, h_carry)
-        failed = st.failed | (active & (h_new < 1e-13 * self.tf_total))
-        nts, out_C, out_m = self.dense_output(f, lp, st, h, accept, t_new,
-                                              f_n, y_1, f_1)
-        nacc = st.nacc + accept.to(torch.int32)
-        nrej = st.nrej + (active & ~accept).to(torch.int32)
-        return LaneState(t_new, h_new, y_new, nts, out_C, out_m, nacc, nrej,
-                         failed), ok
+        failed = failed | (active & (h_new < h_min))
+        nacc = nacc + accept.to(torch.int32)
+        nrej = nrej + (active & ~accept).to(torch.int32)
+        return _Advance(h, accept, t_new, y_new, h_new, failed, nacc, nrej,
+                        f_n, y_1, f_1, ok)
 
     def dense_output(self, f, lp: _LaneParams, st: LaneState, h, accept,
                      t_new, f_n, y_1, f_1):
@@ -569,6 +717,70 @@ class _SolverCtx:
             write = writes(nts)
             if not host_read(write.any()):
                 return nts, out_C, out_m
+
+
+class _StepGraph:
+    """:meth:`_SolverCtx.advance` captured once as a CUDA graph over
+    static input buffers (``inputs``: the step's state, its leg ends, the
+    lane parameters ``D`` and ``k``, the failure threshold ``h_min``).
+    Each replay overwrites the same output buffers.  The lane parameters'
+    derived forms (``kdict``, the diffusivities, their linear-solve-dtype
+    copies) are built inside the graph.  On the CPU nothing is captured:
+    each replay runs the body again and copies its results into the
+    first replay's outputs, the same aliasing without a card."""
+
+    def __init__(self, ctx: _SolverCtx, key: tuple, inputs: dict):
+        self.ctx = ctx          # holds every tensor the body reads
+        self.key = key
+        self.inputs = {name: v.clone() for name, v in inputs.items()}
+        self.outputs: Optional[_Advance] = None
+        self.graph = None
+        self.done = None        # an event after the last holder's reads
+        if ctx.device.type == "cuda":
+            self._capture()
+
+    def _body(self) -> _Advance:
+        ctx, ins = self.ctx, self.inputs
+        lp = ctx.lane_params(Params(D=ins["D"], k=ins["k"]))
+        return ctx.advance(ctx.make_f(lp), lp, ins["t1"], ins["active"],
+                           ins["t"], ins["h"], ins["y"], ins["nacc"],
+                           ins["nrej"], ins["failed"], ins["h_min"])
+
+    def _capture(self):
+        dev = self.ctx.device
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev):
+            # one eager run on the capture stream first, as
+            # torch.cuda.graphs asks (its workspaces exist before capture)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._body()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread-local: the mesh's other slots keep working eagerly
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.outputs = self._body()
+
+    def replay(self) -> _Advance:
+        if self.graph is not None:
+            with torch.cuda.device(self.ctx.device):
+                self.graph.replay()
+        elif self.outputs is None:
+            self.outputs = self._body()
+        else:
+            for out, new in zip(self.outputs, self._body()):
+                if out is not None:
+                    out.copy_(new)
+        return self.outputs
+
+
+# captured step graphs that no solve holds, by _SolverCtx.graph_key, the
+# key given back last at the end; each holds a memory pool of its own
+_IDLE_GRAPHS: "OrderedDict[tuple, List[_StepGraph]]" = OrderedDict()
+MAX_IDLE_GRAPHS = 8
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
 
 
 # band age (accepted or rejected steps) that forces a refresh under
@@ -633,13 +845,16 @@ def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
                 want_refresh = host_read((active & ~ok).any())
                 j_age += 1
     failed = st.failed | (st.nts <= Nts)
+    # the step counts are a graph's outputs where the step replays one:
+    # copied before the graph goes to the next solve
+    nacc, nrej = st.nacc.clone(), st.nrej.clone()
+    ctx.release_graph()
 
     t_save = torch.linspace(0.0, tf_total, Nts + 1,
                             dtype=torch.float64).to(dtype=dtype, device=dev)
     sol = Solution(C=st.out_C.movedim(-1, 0), m=st.out_m.movedim(-1, 0),
                    t=t_save, r=ctx.r, CoEGFR=CoEGFR)
-    return sol, StiffStats(n_accepted=st.nacc, n_rejected=st.nrej,
-                           failed=failed)
+    return sol, StiffStats(n_accepted=nacc, n_rejected=nrej, failed=failed)
 
 
 def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
@@ -772,6 +987,8 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
                     n_done += nf
                     next_ptr += nf
             it += 1
+    # every read of a step's outputs (the harvests') is queued
+    ctx.release_graph()
     if rec is not None:
         steps, acc = torch.stack([steps_all.sum(), accepted]).tolist()
         rec.count(active_lane_steps=steps, accepted_steps=acc)

@@ -94,12 +94,21 @@ def make_mol_rhs_lanes_df32(system: ReactionDiffusionSystem, R: float,
     inv_dr2_64 = torch.tensor(1.0 / dr**2, dtype=torch.float64)
     # metric coefficient 1/(r_j * dr) for interior nodes j=1..M
     inv_rdr_64 = 1.0 / (r[1:-1] * dr)
+    # both split once per device: a copy from the host inside every call
+    # would wait for the card (and cannot stand in a CUDA graph)
+    on_device = {}
+
+    def consts(dev):
+        if dev not in on_device:
+            on_device[dev] = (d3.from_f64(inv_dr2_64.to(dev)),
+                              d3.from_f64(inv_rdr_64.to(dev)))
+        return on_device[dev]
 
     def rhs(y: torch.Tensor, params: Params) -> torch.Tensor:
         B = y.shape[-1]
         k = _kdict_df32(params.k)
         d_eff = d3.from_f64(rhs_mod.effective_diffusivities(system, params))
-        inv_dr2 = d3.from_f64(inv_dr2_64.to(y.device))
+        inv_dr2, inv_rdr = consts(y.device)
         yd = d3.from_f64(y)
         C_int = d3.moveaxis(yd[:-1], 0, 1)                 # (10, M, B)
         m_t = d3.moveaxis(yd[-1, :N_MEMB, :], 0, -1)       # (B, 8)
@@ -112,7 +121,6 @@ def make_mol_rhs_lanes_df32(system: ReactionDiffusionSystem, R: float,
         um, uc, up = C_full[:, :-2], C_full[:, 1:-1], C_full[:, 2:]
         lap = ((up - uc) - (uc - um)) * inv_dr2
         if system.geometry is Geometry.SPHERICAL:
-            inv_rdr = d3.from_f64(inv_rdr_64.to(y.device))
             lap = lap + (up - um) * inv_rdr[None, :, None]
 
         dC = d_eff.T[:, None, :] * lap + _bulk_rates(system, C_int, k)
