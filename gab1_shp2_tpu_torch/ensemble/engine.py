@@ -119,7 +119,6 @@ def run_ensemble(
     method: str = "rodas4",
     linsolve_dtype=None,
     max_steps: int = 20_000,
-    jac_reuse=None,
     scheduler: Optional[str] = None,
     refill_group: Optional[int] = None,
 ):
@@ -192,16 +191,7 @@ def run_ensemble(
         kw = dict(R=R, dr=dr, tf=tf, Nts=Nts, rtol=rtol, atol=atol,
                   method=method, linsolve_dtype=linsolve_dtype,
                   max_steps=max_steps, t_prechase=t_prechase)
-        if scheduler is None:
-            # jac_reuse's refresh votes are collective over a chunk, so
-            # it needs fixed chunk membership
-            scheduler = "sorted" if jac_reuse else "refill"
-        if scheduler == "refill":
-            if jac_reuse:
-                raise ValueError(
-                    "scheduler='refill' is incompatible with jac_reuse "
-                    "(collective refresh votes need fixed chunk "
-                    "membership); use scheduler='sorted'")
+        if scheduler is None or scheduler == "refill":
             return _run_stiff_refill(system, Co, pb, N, extract, chunk,
                                      refill_group, kw, mesh=mesh)
         if scheduler != "sorted":
@@ -209,16 +199,14 @@ def run_ensemble(
 
         def solve_chunk(co, p):
             sol, stats = solve_stiff_batch(system, co, p, device=p.k.device,
-                                           return_stats=True,
-                                           jac_reuse=jac_reuse, **kw)
+                                           return_stats=True, **kw)
             out = _extract_members(extract, sol)
             ok = ~stats.failed & torch.isfinite(sol.C[:, -1]).all(
                 dim=-1).all(dim=-1)
             return out, ok, stats.n_accepted + stats.n_rejected
 
         if mesh is not None:
-            return _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh,
-                                      sort=not jac_reuse)
+            return _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh)
 
         def chunk_solver(idx):
             # a per-member Co (N, 5) gives each chunk its own rows; the
@@ -228,8 +216,7 @@ def run_ensemble(
 
         if chunk is None or chunk >= N:
             return chunk_solver(None)[:2]
-        return _run_stiff_cost_sorted(chunk_solver, pb, N, int(chunk),
-                                      sort=not jac_reuse)
+        return _run_stiff_cost_sorted(chunk_solver, pb, N, int(chunk))
 
     # explicit: per-member stability dt with a shared step count
     # (reference semantics, basepdesolver.jl:30)
@@ -323,7 +310,7 @@ def _run_stiff_refill(system, Co, pb, N, extract, chunk, refill_group, kw,
     return _cat(outs)
 
 
-def _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh, sort=True):
+def _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh):
     """Dispatch the stiff ensemble over a device mesh under the sorted
     scheduler: every dispatch solves a super-chunk of ``D * chunk``
     members (``chunk`` per slot, default ``ceil(N / D)``), scheduled by
@@ -345,14 +332,13 @@ def _run_stiff_sharded(solve_chunk, Co, pb, N, chunk, mesh, sort=True):
         co = Co if Co.ndim == 1 else Co[idx_t]
         return _on_mesh(solve_chunk, co, _take(pb, idx_t), mesh)
 
-    out, ok = _run_stiff_cost_sorted(chunk_solver, pb, N + pad, super_chunk,
-                                     sort=sort)
+    out, ok = _run_stiff_cost_sorted(chunk_solver, pb, N + pad, super_chunk)
     if pad:
         out, ok = pytree.tree_map(lambda a: a[:N], (out, ok))
     return out, ok
 
 
-def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):
+def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk):
     """Chunked stiff dispatch with pilot-fit cost-sorted scheduling;
     ``chunk_solver`` takes the member indices of one chunk.
 
@@ -363,15 +349,13 @@ def _run_stiff_cost_sorted(chunk_solver, pb, N, chunk, sort=True):
     log(params) on its lanes, and solve the remaining members in
     predicted-cost order.  Per-lane results do not depend on chunk
     membership (lanes step independently; finished lanes idle), so
-    reordering never changes results — except under ``jac_reuse``, whose
-    band refreshes are collective per chunk: ``sort=False`` keeps the
-    original in-order chunking there.
+    reordering never changes results.
     """
     pilot_idx = np.arange(chunk)
     out_p, ok_p, steps_p = chunk_solver(pilot_idx)
 
     rest = np.arange(chunk, N)
-    if sort and rest.size:
+    if rest.size:
         packed = pb.pack().detach().cpu().numpy().astype(np.float64)
         X = np.log(np.maximum(packed, 1e-300))
         A = np.column_stack([X[pilot_idx], np.ones(chunk)])

@@ -13,9 +13,11 @@ The JAX ``while_loop``/``cond`` constructs become host loops whose
 conditions are device-side reductions read by the host once per
 iteration, each through ``utils.progress.host_read``.  Both schedulers
 — the chunked :func:`solve_stiff_batch` and the lane-refill
-:func:`solve_stiff_refill` — share one copy of the step arithmetic
-(:class:`_SolverCtx`), so a member's step sequence does not depend on
-the scheduler that runs it.
+:func:`solve_stiff_refill` — share one copy of the step arithmetic and
+one starting lane state (:class:`_SolverCtx`), so a member's step
+sequence does not depend on the scheduler that runs it.  Each method
+has one step body, which builds its Jacobian bands from the step's own
+state every step.
 
 ``step_impl`` names map onto the JAX package's: ``"torch"`` is JAX's
 ``"xla"`` (the unfused eager step) and ``"fused"`` is JAX's ``"pallas"``
@@ -314,9 +316,9 @@ class _Advance(NamedTuple):
 
 
 def step_graphed(device: torch.device, method: str, step_impl: str) -> bool:
-    """Whether :meth:`_SolverCtx.step` replays its body from a CUDA graph:
-    the ROW tableaus and the unfused Rosenbrock23 on a card, whose bodies
-    make no host read."""
+    """Whether every :meth:`_SolverCtx.step` of a solve replays its body
+    from a CUDA graph: the ROW tableaus and the unfused Rosenbrock23 on a
+    card, whose bodies make no host read."""
     if device.type != "cuda":
         return False    # no graphs on the CPU, where the parity tests run
     if method == "trbdf2":
@@ -357,6 +359,9 @@ class _SolverCtx:
         r64 = torch.arange(self.Nr + 1, dtype=torch.float64) * dr
         self.r = r64.to(dtype=dtype, device=device)
         self.dt_save = tf_total / Nts
+        self.t_save = torch.linspace(0.0, tf_total, Nts + 1,
+                                     dtype=torch.float64).to(dtype=dtype,
+                                                             device=device)
         self.eps = 1e-10 * tf_total
         self.h_min = 1e-13 * tf_total     # a smaller step fails the lane
         self.ls_dtype = linsolve_dtype if linsolve_dtype else dtype
@@ -482,14 +487,43 @@ class _SolverCtx:
             it += 1
         return y, dn <= self.ntol
 
+    def initial_state(self, CoT: torch.Tensor, p: Params,
+                      h0: float) -> LaneState:
+        """The lanes' starting state from per-lane concentration rows
+        ``CoT`` (5, B) and parameters ``p``: y0, the NaN save buffers with
+        slot 0 written, t = 0, h = ``h0`` and zeroed step counters."""
+        B, dtype, dev = CoT.shape[-1], self.dtype, self.device
+        y0 = _lanes_y0(CoT, self.M, dtype)
+        out_C = torch.full((self.Nts + 1, N_CYTO, self.Nr + 1, B),
+                           float("nan"), dtype=dtype, device=dev)
+        out_m = torch.full((self.Nts + 1, N_MEMB, B), float("nan"),
+                           dtype=dtype, device=dev)
+        out_C[0], out_m[0] = self.snapshot(y0, self.lane_params(p))
+        i32 = dict(dtype=torch.int32, device=dev)
+        return LaneState(t=torch.zeros(B, dtype=dtype, device=dev),
+                         h=torch.full((B,), h0, dtype=dtype, device=dev),
+                         y=y0, nts=torch.ones(B, **i32), out_C=out_C,
+                         out_m=out_m, nacc=torch.zeros(B, **i32),
+                         nrej=torch.zeros(B, **i32),
+                         failed=torch.zeros(B, dtype=torch.bool, device=dev))
+
+    def running(self, st: LaneState, t1, max_steps: int) -> torch.Tensor:
+        """(B,) bool: the lanes short of the leg end ``t1`` that have
+        neither failed nor used up ``max_steps``."""
+        return ((st.t < t1 - self.eps) & ~st.failed
+                & (st.nacc + st.nrej < max_steps))
+
+    def lanes_failed(self, st: LaneState) -> torch.Tensor:
+        """(B,) bool: the lanes that failed or stopped short of their
+        last save."""
+        return st.failed | (st.nts <= self.Nts)
+
     def step(self, f, lp: _LaneParams, t1, active, st: LaneState,
              jac=None):
         """One adaptive step for every lane; ``active`` masks the lanes
         allowed to advance (inactive lanes keep their state bit for bit).
-        ``t1`` is the leg end, a float or a (B,) tensor; ``jac``
-        optionally supplies cached bands (the TRBDF2 ``jac_reuse`` path),
-        otherwise they are rebuilt from ``y``.  Returns ``(updated state,
-        per-lane step-success flags)``.
+        ``t1`` is the leg end, a float or a (B,) tensor.  Returns
+        ``(updated state, per-lane step-success flags)``.
 
         Where :func:`step_graphed` holds, everything up to the dense
         output (:meth:`advance`) is one replay of a CUDA graph: the
@@ -499,12 +533,15 @@ class _SolverCtx:
         ``rhs``, ``bands``, ``factor`` and ``solve`` spans are recorded
         only while the graph is captured; the recorder counts
         ``graph_replays`` and ``graph_captures``."""
-        # jac_reuse's cached bands are refreshed on the host's votes
-        if self.graphed and jac is None:
+        # the benchmark's step wrappers pass jac and unpack (state, ok)
+        if jac is not None:
+            raise ValueError("the step builds its Jacobian bands from y; "
+                             "jac must be None")
+        if self.graphed:
             adv, start = self._replay(lp, t1, active, st)
         else:
             adv = self.advance(f, lp, t1, active, st.t, st.h, st.y, st.nacc,
-                               st.nrej, st.failed, self.h_min, jac=jac)
+                               st.nrej, st.failed, self.h_min)
             start = st
         nts, out_C, out_m = self.dense_output(f, lp, start, adv.h, adv.accept,
                                               adv.t_new, adv.f_n, adv.y_1,
@@ -593,10 +630,12 @@ class _SolverCtx:
                     gone.done.synchronize()
 
     def advance(self, f, lp: _LaneParams, t1, active, t, h_carry, y, nacc,
-                nrej, failed, h_min, jac=None) -> "_Advance":
-        """The step up to its first host read: the stages, the error
-        norm and the controller, with ``h_min`` the failure threshold
-        (``self.h_min``, as a float or as a graph's device scalar)."""
+                nrej, failed, h_min) -> "_Advance":
+        """The step up to its first host read: the bands built from ``y``
+        (none on the fused Rosenbrock23 path, whose kernel builds its
+        own), the stages, the error norm and the controller, with
+        ``h_min`` the failure threshold (``self.h_min``, as a float or as
+        a graph's device scalar)."""
         method, ls = self.method, self.ls_dtype
         # step size: truncated to the leg end for active lanes, a
         # harmless dummy for finished lanes (their carried h is kept)
@@ -604,9 +643,7 @@ class _SolverCtx:
                         torch.ones_like(h_carry))
 
         f_n = f(y)
-        if jac is not None:
-            Lj, Dj, Uj = jac
-        elif not (method == "rosenbrock23" and self.step_impl == "fused"):
+        if not (method == "rosenbrock23" and self.step_impl == "fused"):
             Lj, Dj, Uj = self.bands(y, lp)
         hb = h[None, None, None, :].to(ls)
         hd = h[None, None, :]
@@ -783,77 +820,31 @@ _GRAPHS_LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
 
 
-# band age (accepted or rejected steps) that forces a refresh under
-# jac_reuse
-JAC_MAX_AGE = 20
-
-
 def _solve_batch_impl(system, Co, params, legs, R, dr, Nts, rtol, atol,
                       max_steps, h0, method, linsolve_dtype, step_impl,
-                      jac_reuse=False, rhs_mixed=False):
-    dtype, dev = Co.dtype, Co.device
+                      rhs_mixed=False):
     B = params.k.shape[0]
-    tf_total = legs[-1][1]
-    ctx = _SolverCtx(system, R, dr, Nts, rtol, atol, tf_total, dtype, dev,
-                     linsolve_dtype, method, step_impl, rhs_mixed)
-    Nr, M, eps = ctx.Nr, ctx.M, ctx.eps
-
+    ctx = _SolverCtx(system, R, dr, Nts, rtol, atol, legs[-1][1], Co.dtype,
+                     Co.device, linsolve_dtype, method, step_impl, rhs_mixed)
     if Co.ndim == 2:
-        y0 = _lanes_y0(Co.T, M, dtype)
-        CoEGFR = Co[:, 4]
+        CoT, CoEGFR = Co.T, Co[:, 4]
     else:
-        y0 = _lanes_y0(Co[:, None].expand(5, B), M, dtype)
-        CoEGFR = Co[4].expand(B)
-
-    out_C = torch.full((Nts + 1, N_CYTO, Nr + 1, B), float("nan"),
-                       dtype=dtype, device=dev)
-    out_m = torch.full((Nts + 1, N_MEMB, B), float("nan"), dtype=dtype,
-                       device=dev)
-    out_C[0], out_m[0] = ctx.snapshot(y0, ctx.lane_params(legs[0][2]))
-
-    i32 = dict(dtype=torch.int32, device=dev)
-    st = LaneState(t=torch.zeros(B, dtype=dtype, device=dev),
-                   h=torch.full((B,), h0, dtype=dtype, device=dev),
-                   y=y0, nts=torch.ones(B, **i32), out_C=out_C, out_m=out_m,
-                   nacc=torch.zeros(B, **i32), nrej=torch.zeros(B, **i32),
-                   failed=torch.zeros(B, dtype=torch.bool, device=dev))
-    # Jacobian reuse (TRBDF2 only; for a Newton method a stale J slows
-    # convergence but never moves the converged solution): the bands
-    # are refreshed at leg entry, after a step on which some lane's
-    # Newton iteration failed, and at age JAC_MAX_AGE; W is refactored
-    # from the cached bands every step.  The refresh is collective over
-    # the batch, so results depend on the batch's membership.
-    reuse = bool(jac_reuse) and method == "trbdf2"
+        CoT, CoEGFR = Co[:, None].expand(5, B), Co[4].expand(B)
+    st = ctx.initial_state(CoT, legs[0][2], h0)
     for (t0, t1, p) in legs:
         lp = ctx.lane_params(p)
         f = ctx.make_f(lp)
         st = st._replace(t=torch.clamp(st.t, min=t0))
-        jac, j_age, want_refresh = None, 0, False
-        if reuse:
-            jac = ctx.bands(st.y, lp)
-        while True:
-            running = ((st.t < t1 - eps) & ~st.failed
-                       & (st.nacc + st.nrej < max_steps))
-            if not host_read(running.any()):
-                break
-            active = st.t < t1 - eps
-            if reuse and (want_refresh or j_age >= JAC_MAX_AGE):
-                jac, j_age = ctx.bands(st.y, lp), 0
-            st, ok = ctx.step(f, lp, t1, active, st, jac=jac)
-            if reuse:
-                # a Newton failure invalidates the (possibly stale) J
-                want_refresh = host_read((active & ~ok).any())
-                j_age += 1
-    failed = st.failed | (st.nts <= Nts)
+        while host_read(ctx.running(st, t1, max_steps).any()):
+            st, _ = ctx.step(f, lp, t1, st.t < t1 - ctx.eps, st)
+    failed = ctx.lanes_failed(st)
     # the step counts are a graph's outputs where the step replays one:
     # copied before the graph goes to the next solve
     nacc, nrej = st.nacc.clone(), st.nrej.clone()
     ctx.release_graph()
 
-    t_save = torch.linspace(0.0, tf_total, Nts + 1,
-                            dtype=torch.float64).to(dtype=dtype, device=dev)
     sol = Solution(C=st.out_C.movedim(-1, 0), m=st.out_m.movedim(-1, 0),
-                   t=t_save, r=ctx.r, CoEGFR=CoEGFR)
+                   t=ctx.t_save, r=ctx.r, CoEGFR=CoEGFR)
     return sol, StiffStats(n_accepted=nacc, n_rejected=nrej, failed=failed)
 
 
@@ -877,9 +868,7 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
     B, K = int(lanes), int(harvest_every)
     ctx = _SolverCtx(system, R, dr, Nts, rtol, atol, tf, dtype, dev,
                      linsolve_dtype, method, "torch", rhs_mixed)
-    M, Nr, eps = ctx.M, ctx.Nr, ctx.eps
-    t_save = torch.linspace(0.0, tf, Nts + 1,
-                            dtype=torch.float64).to(dtype=dtype, device=dev)
+    Nr, eps = ctx.Nr, ctx.eps
     if Co_all.ndim == 1:
         Co_all = Co_all.expand(N, 5)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -893,29 +882,16 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
         midx = member.clamp(0, N - 1)
         Co_l = Co_all[midx]                                  # (B, 5)
         p_l, p2_l = take(params, midx), take(params2, midx)
-        y0 = _lanes_y0(Co_l.T, M, dtype)
-        out_C = torch.full((Nts + 1, N_CYTO, Nr + 1, B), float("nan"),
-                           dtype=dtype, device=dev)
-        out_m = torch.full((Nts + 1, N_MEMB, B), float("nan"), dtype=dtype,
-                           device=dev)
-        out_C[0], out_m[0] = ctx.snapshot(y0, ctx.lane_params(p_l))
-        st = LaneState(t=torch.zeros(B, dtype=dtype, device=dev),
-                       h=torch.full((B,), h0, dtype=dtype, device=dev),
-                       y=y0, nts=torch.ones(B, **i32), out_C=out_C,
-                       out_m=out_m, nacc=torch.zeros(B, **i32),
-                       nrej=torch.zeros(B, **i32),
-                       failed=torch.zeros(B, dtype=torch.bool, device=dev))
-        return live, Co_l, p_l, p2_l, st
+        return live, Co_l, p_l, p2_l, ctx.initial_state(Co_l.T, p_l, h0)
 
     def extract_lanes(out_C, out_m, Co_l):
         sol = Solution(C=out_C.movedim(-1, 0), m=out_m.movedim(-1, 0),
-                       t=t_save.expand(B, Nts + 1),
+                       t=ctx.t_save.expand(B, Nts + 1),
                        r=ctx.r.expand(B, Nr + 1), CoEGFR=Co_l[:, 4])
         return torch.func.vmap(extract)(sol), sol
 
     def lane_pending(live, st):
-        return (live & (st.t < tf - eps) & ~st.failed
-                & (st.nacc + st.nrej < max_steps))
+        return live & ctx.running(st, tf, max_steps)
 
     def where_lanes(sel, a, b):
         return torch.where(sel.reshape((1,) * (a.ndim - 1) + (B,)), a, b)
@@ -955,10 +931,7 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
                     it % K == K - 1 or not host_read(still.any())):
                 with ctx.span("harvest"):
                     vals, sol = extract_lanes(st.out_C, st.out_m, Co_l)
-                    # incomplete saves count as failure (chunked-path
-                    # semantics)
-                    failed_h = st.failed | (st.nts <= Nts)
-                    okl = ~failed_h & torch.isfinite(
+                    okl = ~ctx.lanes_failed(st) & torch.isfinite(
                         sol.C[:, -1]).all(dim=-1).all(dim=-1)
                     idx = member[finished]
                     for buf, v in zip(pytree.tree_leaves(out_all),
@@ -973,17 +946,11 @@ def _solve_refill_impl(system, Co_all, params, R, dr, tf, Nts, rtol, atol,
                     nf = host_read(finished.sum(), int)
                     ranks = torch.cumsum(finished.to(torch.int64), 0) - 1
                     member = torch.where(finished, next_ptr + ranks, member)
-                    live_f, Co_f, p_f, p2_f, st_f = fresh(member)
-                    sel_r = finished[:, None]
-                    Co_l = torch.where(sel_r, Co_f, Co_l)
-                    p_l = Params(D=torch.where(sel_r, p_f.D, p_l.D),
-                                 k=torch.where(sel_r, p_f.k, p_l.k))
-                    if p2_l is not None:
-                        p2_l = Params(D=torch.where(sel_r, p2_f.D, p2_l.D),
-                                      k=torch.where(sel_r, p2_f.k, p2_l.k))
+                    # a lane's rows are its member's, so only the state
+                    # of the refilled lanes is merged
+                    live, Co_l, p_l, p2_l, st_f = fresh(member)
                     st = LaneState(*(where_lanes(finished, a_f, a)
                                      for a_f, a in zip(st_f, st)))
-                    live = torch.where(finished, live_f, live)
                     n_done += nf
                     next_ptr += nf
             it += 1
@@ -1085,7 +1052,6 @@ def solve_stiff_batch(
     return_stats: bool = False,
     method: str = "trbdf2",
     linsolve_dtype=None,
-    jac_reuse: Optional[bool] = None,
     step_impl: Optional[str] = None,
     rhs_mixed: Optional[bool] = None,
 ):
@@ -1102,12 +1068,6 @@ def solve_stiff_batch(
     algebra).  ``step_impl``: ``"torch"`` (default, the unfused step) or
     ``"fused"`` (the fused Rosenbrock23 kernel; float32 rosenbrock23
     with float32 linear algebra only).
-
-    ``jac_reuse=True`` (trbdf2 only; ignored for the other methods)
-    amortizes the Jacobian band refresh across steps (refreshed by age,
-    Newton failure or a leg change; W is refactored every step), so
-    solutions agree with the default to the integration tolerance, not
-    bit for bit.
 
     ``rhs_mixed`` (float64 state only) evaluates the RHS in float32
     pairs: ``"df32"`` compensated (~2^-48 of the float64 RHS, fit for the
@@ -1135,7 +1095,6 @@ def solve_stiff_batch(
                                    float(dr), int(Nts), rtol, atol,
                                    int(max_steps), float(h0), method,
                                    linsolve_dtype, step_impl,
-                                   jac_reuse=bool(jac_reuse),
                                    rhs_mixed=rhs_mixed)
     if return_stats:
         return sol, stats

@@ -168,8 +168,6 @@ def test_argument_errors():
     with pytest.raises(ValueError, match="not in mesh axes"):
         _t_run(batch, device_axis="members",
                mesh=ensemble_mesh(["cpu"]), **FAST)
-    with pytest.raises(ValueError, match="jac_reuse"):
-        _t_run(batch, jac_reuse=True, scheduler="refill", **FAST)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tg.run_ensemble(tg.base_system(), tg.default_co(device="cpu"),

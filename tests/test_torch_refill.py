@@ -11,6 +11,7 @@ within 1e-10 relative to the largest value.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import gab1_shp2_tpu as jg
@@ -93,26 +94,51 @@ def test_reducer_extract_small_queue_default_method():
     assert ok.all()
 
 
-def test_failure_masking_and_batched_co():
-    """A poisoned member is harvested as failed; its lane is refilled and
-    later members still solve; per-member Co rows flow through."""
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("co_rows", ["per_member", "shared"])
+def test_failure_masking_and_batched_co(co_rows, dtype):
+    """A poisoned member is harvested as failed and a member cut short by
+    ``max_steps`` as not ok, as in the chunked solve; their lanes are
+    refilled and later members still solve; per-member or shared Co rows
+    flow through.  Under both schedulers the cut member holds the same
+    saves up to the last it reached and NaN in every slot after it.  In
+    float32 the lane width moves roundoff: values within 1e-5."""
     N = 6
     P = _ensemble(N, 0.0, 0)
     P[1, 7:] *= 1e12
-    co = np.asarray(jg.default_co())
-    Cob = torch.as_tensor(np.stack([co * (1.0 - 0.05 * i) for i in range(N)]))
-    kw = dict(KW, tf=0.5, max_steps=300)
-    solb, statb = tg.solve_stiff_batch(tg.base_system(), Cob, _pt(P),
+    P[3, 7:] *= 3e3         # 127 steps to tf, the others at most 77
+    co = np.array(jg.default_co())
+    if co_rows == "per_member":
+        co = np.stack([co * (1.0 - 0.05 * i) for i in range(N)])
+    Cob = torch.as_tensor(co, dtype=dtype)
+    Pt = TParams.unpack(torch.as_tensor(P, dtype=dtype))
+    kw = dict(KW, tf=0.5, max_steps=100)
+    solb, statb = tg.solve_stiff_batch(tg.base_system(), Cob, Pt,
                                        device="cpu", return_stats=True, **kw)
-    out, ok, steps = tg.solve_stiff_refill(tg.base_system(), Cob, _pt(P),
+    out, ok, steps = tg.solve_stiff_refill(tg.base_system(), Cob, Pt,
                                            device="cpu", lanes=2,
                                            harvest_every=5, **kw)
     np.testing.assert_array_equal(ok.numpy(), ~statb.failed.numpy())
-    assert not ok[1]
+    np.testing.assert_array_equal(ok.numpy(), ~np.isin(np.arange(N), [1, 3]))
+    assert int(steps[3]) == int(statb.n_accepted[3] + statb.n_rejected[3])
+    assert int(steps[3]) == 100
+    if dtype == torch.float64:
+        tol = dict(rtol=1e-12, atol=1e-12)
+    else:
+        tol = dict(rtol=1e-5, atol=1e-5 * float(solb.C[ok].abs().max()))
     good = ok.numpy()
     np.testing.assert_allclose(out.C.numpy()[good], solb.C.numpy()[good],
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_array_equal(out.CoEGFR.numpy(), Cob[:, 4].numpy())
+                               **tol)
+    reached = torch.isfinite(solb.C[3]).flatten(1).all(dim=1)
+    n = int(reached.sum())
+    assert 1 <= n <= KW["Nts"] and reached[:n].all()
+    np.testing.assert_allclose(out.C[3, :n].numpy(), solb.C[3, :n].numpy(),
+                               **tol)
+    assert torch.isnan(out.C[3, n:]).all() and torch.isnan(solb.C[3, n:]).all()
+    assert torch.isnan(out.m[3, n:]).all() and torch.isnan(solb.m[3, n:]).all()
+    np.testing.assert_array_equal(out.CoEGFR.numpy(),
+                                  Cob[..., 4].expand(N).numpy())
 
 
 def test_matches_jax_refill_f64():

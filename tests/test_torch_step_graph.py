@@ -126,17 +126,20 @@ def test_cpu_solve_replays_no_graph():
     assert "graph_replays" not in c and "graph_captures" not in c
 
 
-def test_jac_reuse_steps_stay_eager(monkeypatch):
-    """Cached bands (TRBDF2's jac_reuse) keep the step eager even where
-    the predicate says graph."""
-    _graphed(monkeypatch)
-    X = _members(2)
-    with progress.record() as rec:
-        tg.solve_stiff_batch(tg.base_system(), tg.default_co(device="cpu"),
-                             tg.Params.unpack(X), device="cpu", dr=1.0,
-                             tf=1 / 256, Nts=2, rtol=1e-4, atol=1e-7,
-                             method="trbdf2", jac_reuse=True)
-    assert "graph_replays" not in rec.read().counters
+@pytest.mark.parametrize("method", ["rodas4", "trbdf2"])
+def test_one_step_from_the_initial_state(method):
+    """One step from :meth:`_SolverCtx.initial_state` moves every active
+    lane by one counted step and returns the state with its flags."""
+    ctx = _SolverCtx(tg.base_system(), 10.0, 5.0, 2, 1e-4, 1e-7, 1.0,
+                     torch.float64, CPU, None, method, "torch")
+    p = tg.Params.unpack(_members(2))
+    st = ctx.initial_state(tg.default_co(device=CPU)[:, None].expand(5, 2),
+                           p, 1e-5)
+    lp = ctx.lane_params(p)
+    active = torch.ones(2, dtype=torch.bool)
+    new, ok = ctx.step(ctx.make_f(lp), lp, 1.0, active, st)
+    assert isinstance(new, batch_stiff.LaneState)
+    assert bool((new.nacc + new.nrej == 1).all()) and bool(ok.all())
 
 
 @pytest.fixture(scope="module")

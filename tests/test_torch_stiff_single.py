@@ -8,9 +8,6 @@ with the same step sequence (equal accepted and rejected counts, equal
 ``failed``) and C, m within 1e-10 relative to the largest value.  With
 float32 linear algebra on a float64 state: step counts within +-2 and
 values within 1e-6 (tests/test_batch_stiff.py::TestMixedPrecision).
-``jac_reuse=True`` against the JAX package's reuse path: within the
-bound of tests/test_batch_stiff.py::test_jac_reuse_accuracy (5e-4
-relative to |C| + 1e-6), and to the port's fresh-Jacobian solve.
 """
 
 from functools import partial
@@ -29,7 +26,6 @@ from gab1_shp2_tpu.ops import jacobian as j_jac
 from gab1_shp2_tpu.ops import smalllu as j_lu
 from gab1_shp2_tpu.ops.batch_stiff import block_jacobian_lanes as j_bjl
 from gab1_shp2_tpu.ops.batch_stiff import make_mol_rhs_lanes as j_rhs_lanes
-from gab1_shp2_tpu.ops.batch_stiff import solve_stiff_batch as j_batch
 from gab1_shp2_tpu.ops.trbdf2 import _rhs_blocks_fn as j_rhs_blocks
 from gab1_shp2_tpu.ops.trbdf2 import solve_stiff as j_solve
 
@@ -298,65 +294,3 @@ def test_solve_stiff_f32_keeps_the_last_save_at_a_tf_float32_cannot_hold():
     assert int(stt.n_accepted) == int(stj.n_accepted)
     assert int(stt.n_rejected) == int(stj.n_rejected)
     assert torch.isfinite(st_.C).all() and torch.isfinite(st_.m).all()
-
-
-def _ensemble(B=3, seed=0, spread=0.25):
-    rng = np.random.default_rng(seed)
-    p0 = np.asarray(jg.default_params().pack())
-    return p0[None] * np.exp(rng.normal(0, spread, (B, 24)))
-
-
-def test_jac_reuse_matches_jax():
-    P = _ensemble(B=2)
-    co = np.asarray(jg.default_co())
-    kw = dict(KW, method="trbdf2", return_stats=True)
-    sj, stj = j_batch(jg.base_system(), jnp.asarray(co),
-                      JParams.unpack(jnp.asarray(P)), jac_reuse=True, **kw)
-    args = (tg.base_system(), torch.as_tensor(co),
-            TParams.unpack(torch.as_tensor(P)))
-    st_, stt = tg.solve_stiff_batch(*args, device="cpu", jac_reuse=True,
-                                    **kw)
-    sf, stf = tg.solve_stiff_batch(*args, device="cpu", jac_reuse=False,
-                                   **kw)
-    assert not stt.failed.any()
-    Cj = np.asarray(sj.C[:, -1])
-    Ct = st_.C[:, -1].numpy()
-    assert np.max(np.abs(Ct - Cj) / (np.abs(Cj) + 1e-6)) < 5e-4
-    # the same algorithm: the JAX package's step sequence
-    np.testing.assert_array_equal(stt.n_accepted.numpy(),
-                                  np.asarray(stj.n_accepted))
-    np.testing.assert_array_equal(stt.n_rejected.numpy(),
-                                  np.asarray(stj.n_rejected))
-    assert _rel(Ct, Cj) < 1e-10
-    # and the fresh-Jacobian solve to the integration tolerance
-    Cf = sf.C[:, -1].numpy()
-    assert np.max(np.abs(Ct - Cf) / (np.abs(Cf) + 1e-6)) < 5e-4
-
-
-def test_jac_reuse_ignored_outside_trbdf2():
-    """The JAX package ignores jac_reuse for the Rosenbrock methods: the
-    same solve, bit for bit."""
-    P = _ensemble(B=2)
-    args = (tg.base_system(), tg.default_co(device="cpu"),
-            TParams.unpack(torch.as_tensor(P)))
-    kw = dict(KW, method="rodas4", device="cpu")
-    a = tg.solve_stiff_batch(*args, jac_reuse=True, **kw)
-    b = tg.solve_stiff_batch(*args, jac_reuse=False, **kw)
-    assert torch.equal(a.C, b.C)
-
-
-def test_run_ensemble_jac_reuse():
-    """run_ensemble(jac_reuse=True) runs the in-order chunked scheduler
-    and matches solve_stiff_batch(jac_reuse=True) on each chunk."""
-    P = _ensemble(B=4, seed=1)
-    co = tg.default_co(device="cpu")
-    kw = dict(KW, tf=0.25, method="trbdf2")
-    out, ok = tg.run_ensemble(tg.base_system(), co, P, solver="stiff",
-                              device="cpu", jac_reuse=True, chunk=2,
-                              extract=lambda s: s.C[-1], **kw)
-    assert ok.all()
-    for s in (0, 2):
-        sol = tg.solve_stiff_batch(tg.base_system(), co,
-                                   TParams.unpack(torch.as_tensor(P[s:s + 2])),
-                                   device="cpu", jac_reuse=True, **kw)
-        assert torch.equal(out[s:s + 2], sol.C[:, -1])
